@@ -1,0 +1,151 @@
+"""What must stay apart in the PyTorch port, and what crosses over.
+
+  * instances of a batch: a NaN-poisoned Riccati pivot stays in its
+    instance, and a batched tick equals one-instance ticks (every
+    reduction and selection of the solver is per instance);
+  * the card and the plain versions: a kernel wrapper refuses what its
+    CUDA kernel cannot run instead of falling back;
+  * the two packages: the port imports no JAX, and ``interop`` carries the
+    JAX package's parameters and ``StageQP`` across unchanged.
+
+All on the CPU in f64; nothing here compiles a JAX function.
+"""
+
+import dataclasses
+import os
+import subprocess
+import sys
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from fsae_mpc_tpu import config as jconfig
+from fsae_mpc_tpu.ops import riccati as jriccati
+
+from fsae_mpc_tpu_torch import interop
+from fsae_mpc_tpu_torch.config import MPC_F32, VehicleParams
+from fsae_mpc_tpu_torch.mpc import ltv
+from fsae_mpc_tpu_torch.ops import ipm
+from fsae_mpc_tpu_torch.ops.kernels import riccati as kr
+from fsae_mpc_tpu_torch.track import load_track
+
+F64 = torch.float64
+B, N, NX, NU = 3, 5, 7, 2
+
+
+def _factor_inputs(seed=5):
+    rng = np.random.default_rng(seed)
+    Ad = 0.8 * (np.eye(NX) + 0.1 * rng.standard_normal((B, N, NX, NX)))
+    L = 0.3 * rng.standard_normal((B, N, NX, NX))
+    Qb = np.einsum("bnij,bnkj->bnik", L, L) + np.eye(NX)
+    Rb = np.broadcast_to(np.eye(NU), (B, N, NU, NU)).copy()
+    return [torch.as_tensor(a, dtype=F64) for a in (
+        Ad, rng.standard_normal((B, N, NX, NU)), Qb, Rb,
+        0.1 * rng.standard_normal((B, N, NX, NU)))]
+
+
+def test_nan_poison_stays_in_its_instance():
+    """An indefinite 2x2 pivot NaN-poisons its instance (from that stage
+    back to stage 0) and leaves the other instances untouched."""
+    Ad, Bd, Qb, Rb, M = _factor_inputs()
+    Rb_bad = Rb.clone()
+    Rb_bad[1, 3] = torch.tensor([[-50.0, 0.0], [0.0, 1.0]], dtype=F64)
+    clean = kr.factor_ref(Ad, Bd, Qb, Rb, M)
+    huinv, G, W = kr.factor_ref(Ad, Bd, Qb, Rb_bad, M)
+    # stage 3's pivot is NaN; P_3 and so every earlier stage follow
+    assert torch.isnan(huinv[1, :4]).all()
+    assert torch.isnan(G[1, :3]).all() and torch.isnan(W[1, :3]).all()
+    for o, c in zip((huinv, G, W), clean):
+        torch.testing.assert_close(o[[0, 2]], c[[0, 2]], rtol=0, atol=0)
+        torch.testing.assert_close(o[1, 4:], c[1, 4:], rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("preset", ["F32_OPTS", "F32_PRODUCTION"])
+def test_batched_solve_equals_single_solves(preset):
+    """Per-instance reductions must not leak across the batch: a batched
+    tick equals B one-instance ticks (to summation-order roundoff)."""
+    n = 8
+    mpc = dataclasses.replace(MPC_F32, n_steps=n)
+    track, _ = load_track("data/fsg2019.csv", dtype=F64)
+    params = VehicleParams()
+    t = mpc.dt * torch.arange(1, n + 1, dtype=F64)
+    x0 = torch.zeros((B, 7), dtype=F64)
+    x0[:, 0] = torch.tensor([3.0, 41.0, 97.0])
+    x0[:, 1] = torch.tensor([0.1, -0.15, 0.05])
+    x0[:, 3] = torch.tensor([8.0, 7.0, 9.0])
+    x_lin = torch.zeros((B, n, 7), dtype=F64)
+    x_lin[:, :, 0] = 8.0 * t
+    x_lin[:, :, 3] = 8.0
+    v = torch.clamp_max(x0[:, 3:4] + 10.0 * t, 20.0)
+    x_ref = torch.zeros((B, n, 7), dtype=F64)
+    x_ref[:, :, 3] = v
+    x_ref[:, :, 0] = x0[:, 0:1] + torch.cumsum(v * mpc.dt, 1)
+    u_lin = torch.zeros((B, n, 2), dtype=F64)
+    opts = getattr(ipm, preset)
+    args = (x0, x_ref, x_lin, u_lin)
+    batched = ltv.ltv_mpc_dynamic_riccati(x0, x_ref, track, params, mpc,
+                                          x_lin, u_lin, opts)
+    for b in range(B):
+        a = [v[b:b + 1] for v in args]
+        one = ltv.ltv_mpc_dynamic_riccati(a[0], a[1], track, params, mpc,
+                                          a[2], a[3], opts)
+        np.testing.assert_allclose(one.u_opt.numpy()[0],
+                                   batched.u_opt.numpy()[b], rtol=0,
+                                   atol=1e-9)
+        np.testing.assert_allclose(one.slack.numpy()[0],
+                                   batched.slack.numpy()[b], rtol=0,
+                                   atol=1e-9)
+
+
+def test_kernel_wrappers_refuse_what_they_cannot_run():
+    fac = _factor_inputs()
+    with pytest.raises(ValueError, match="no Riccati kernel"):
+        kr.factor(*[t.to("meta") for t in fac])
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        kr.factor_cuda(*fac)
+    with pytest.raises(ValueError, match="nu == 2"):
+        kr.apply_cuda(*[torch.zeros(B, N, 3, 3)] * 4,
+                      torch.zeros(B, N, 3, 3), torch.zeros(B, N, 3, 3),
+                      *[torch.zeros(B, 1, N, 3)] * 3)
+
+
+def test_port_never_imports_jax():
+    """The slice's modules import neither ``jax`` nor the JAX package (the
+    GPU machine has no JAX)."""
+    code = ("import sys, fsae_mpc_tpu_torch.mpc.ltv, "
+            "fsae_mpc_tpu_torch.interop, fsae_mpc_tpu_torch.track; "
+            "bad = [m for m in sys.modules if m == 'jax' or "
+            "m.startswith(('jax.', 'fsae_mpc_tpu.'))]; "
+            "assert not bad, bad")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    subprocess.run([sys.executable, "-c", code], cwd=root, check=True,
+                   timeout=120)
+
+
+def test_interop_carries_params_and_stage_qp():
+    """The JAX package's parameters and a (batched) StageQP, as numpy, come
+    across unchanged: every field, in the port's batch-first layout."""
+    vp = interop.vehicle_params(dataclasses.asdict(jconfig.VehicleParams()))
+    assert vp == VehicleParams()
+    mp = interop.mpc_params(dataclasses.asdict(jconfig.MPC_F32))
+    assert mp == MPC_F32
+    rng = np.random.default_rng(0)
+    r, ns = 20, 4
+    shapes = dict(Ad=(N, NX, NX), Bd=(N, NX, NU), dd=(N, NX), x0=(NX,),
+                  Qx=(N, NX), qx=(N, NX), Ru=(N, NU), ru=(N, NU), g_s=(ns,),
+                  C=(N, r, NX), D=(N, r, NU), Ws=(N, r, ns), lbA=(N, r),
+                  ubA=(N, r), u_lb=(N, NU), u_ub=(N, NU), s_lb=(ns,),
+                  s_ub=(ns,))
+    jqp = jriccati.StageQP(**{
+        f.name: jnp.asarray(rng.standard_normal((B,) + shapes[f.name]))
+        for f in dataclasses.fields(jriccati.StageQP)})
+    src = {f.name: np.asarray(getattr(jqp, f.name))
+           for f in dataclasses.fields(jqp)}
+    qp = interop.stage_qp(src)
+    back = interop.to_numpy(qp)
+    assert back.keys() == src.keys()
+    for name, v in src.items():
+        np.testing.assert_array_equal(back[name], v)
+    assert qp.Ad.dtype == F64 and qp.Ad.shape == (B, N, NX, NX)
