@@ -7,30 +7,47 @@ Run from the root of a checkout, on a machine with one CUDA card:
 
 Phases (any failure exits non-zero before the result lines):
 
-  1. build    -- compile ``fsae_mpc_tpu_torch/csrc/riccati.cu`` with nvcc
-                 into ``fsae_mpc_tpu_torch/build/`` (no download).
-  2. kernels  -- each of the four Riccati kernels against its plain
-                 PyTorch version on the same CUDA tensors, in f32, at the
-                 main path's shapes (B=1024, N=40, nx=7, r=20, ns=4, K=5
-                 and K=1) and at an odd batch (B=37, also for the other
-                 template instances nx 5/9, ns 1); one instance with an
-                 indefinite 2x2 pivot must come out NaN with its
-                 neighbours finite.  Kernel and plain times (CUDA events).
-  3. main path -- ``ltv_mpc_dynamic_riccati`` on fsg2019 with ``MPC_F32``:
-                 one cold solve and 10 warm ticks at B=1024 under
-                 ``F32_OPTS`` and then ``F32_PRODUCTION``; outputs finite,
-                 launch counts equal to the IPM schedule, warm-tick time;
-                 one more warm tick of each preset must not synchronise
-                 with the host (``torch.cuda.set_sync_debug_mode``).
+  1. build    -- compile ``fsae_mpc_tpu_torch/csrc/{riccati,condense,
+                 chol}.cu`` with nvcc, one process per source, all started
+                 together, into ``fsae_mpc_tpu_torch/build/``.
+  2. kernels  -- each of the seven kernels against its plain PyTorch
+                 version on the same CUDA tensors, in f32:
+                 the four Riccati kernels at the Riccati path's shapes
+                 (B=1024, N=40, nx=7, r=20, ns=4, K=5 and K=1) and at an
+                 odd batch (B=37, also for the other template instances
+                 nx 5/9, ns 1); condense at (B=1024, N=40, nx=7, nu=2) and
+                 at B=37 with nx 7 and 5; the dense Cholesky factor and
+                 solve at n=84 and n=81, B=1024 and B=37, on SPD matrices
+                 whose diagonal spans the IPM's range (up to its f32
+                 complementarity cap, 1e7), normwise and entry by entry
+                 (componentwise backward error, which planted faults
+                 must fail).  One indefinite instance among
+                 37 must come out NaN with its neighbours finite (Riccati
+                 2x2 pivot; dense KKT matrix).  Kernel, plain and library
+                 times (CUDA events) and each kernel's bound.
+  3. main paths, each driven with every launch count set to 0 just
+                 before it and read just after:
+                 (a) ``ltv_mpc_dynamic(backend="riccati")`` and
+                 (b) ``ltv_mpc_dynamic(backend="dense")`` (the default:
+                 condense, condensed QP, dense IPM, rollout), on fsg2019
+                 with ``MPC_F32``: one cold solve and 10 warm ticks at
+                 B=1024 under ``F32_OPTS`` and then ``F32_PRODUCTION``;
+                 outputs finite, launch counts equal to the IPM schedule,
+                 warm-tick time, peak device memory; one more warm tick of
+                 each preset must not synchronise with the host
+                 (``torch.cuda.set_sync_debug_mode``).
   4. accuracy -- first-control max and mean control error against a tight
                  f64 solve of the same QP data (the port's plain path, on
                  CPU tensors on purpose), beside the accuracy bars:
                  (a) the JAX package's accuracy regime (ACCURACY_TPU.json,
                      scripts/accuracy_onchip.py): 32 instances after three
-                     f64 ticks, solved cold in f32 on the card --
-                     F32_PRODUCTION must meet the bars;
-                 (b) the last warm tick of phase 3, 64 instances --
-                     F32_PRODUCTION must stay within ACC_GUARD.
+                     f64 ticks, solved cold in f32 on the card by the
+                     Riccati solver -- F32_PRODUCTION must meet the bars;
+                 (b) the last warm tick of each main path, 64 instances --
+                     F32_PRODUCTION must stay within ACC_GUARD;
+                 (c) the dense and Riccati ticks on the same x0 and
+                     linearisation solve the same QP: their first controls
+                     side by side, in f32 on the card and in f64.
 
 The last three lines of standard output are the card's name and power
 limit, one JSON object with the kernels, and
@@ -51,10 +68,17 @@ WARM_TICKS = 10
 ACC_SUBSET = 64
 SEED = 0
 # kernel vs plain version, normwise relative (max |k - p| / max |p|):
-# both run the same f32 recursion over 40 stages; they differ in summation
-# order and in nvcc's FMA contraction, ~1e-7 per operation, grown by the
-# recursion's conditioning on this data.
+# both run the same f32 arithmetic (Riccati and condense: a recursion over
+# 40 stages; Cholesky: 84 columns) in another summation order and with
+# nvcc's FMA contraction, ~1e-7 per operation, grown by the recursion's or
+# the matrix's conditioning on this data.
 KERNEL_RTOL = 1e-4
+# dense kernels: widths of the dynamic (nx=7, n=84) and kinematic (nx=5,
+# n=81) LTV QPs
+N_DENSE = (84, 81)
+# published peaks of one H100 SXM (NVIDIA data sheet, 700 W): HBM bytes/s
+# and float32 operations/s outside the tensor cores
+PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
 ACC_BARS = {"first_control_max": 1e-2, "mean_control": 1e-3}
 # regime (a), the JAX package's own: 32 instances, three f64 ticks of
 # history (max_iters=16, fixed), then a cold f32 solve
@@ -169,6 +193,33 @@ def compare(name, outs, refs, results, tag):
     res["max_rel_err"] = max(res["max_rel_err"], rel)
 
 
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(bytes_, ops):
+    """The least time (ms) the card could take for the work, and which of
+    the two limits sets it: the bytes moved at the HBM rate or the f32
+    operations at the peak rate outside the tensor cores."""
+    t_bytes, t_ops = bytes_ / PEAK_BYTES, ops / PEAK_F32
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def riccati_ops(name, B, N, nx, nu, r, ns, K):
+    """Floating-point operations of one Riccati sweep (multiply-add = 2)."""
+    stage = (4 * nx ** 3 + 6 * nx * nx * nu + 2 * nx * nx + nx * nu
+             + 6 * nx * nu * nu + nu * nu + 10)
+    fold = (2 * r * (nx * nx + nu * nu + nx * nu + nx * ns + nu * ns
+                     + ns * ns) + r * (nx + nu + ns))
+    per = {"factor": stage, "assemble_factor": stage + fold,
+           "apply_bwd": (K * (4 * nx * nx + 6 * nx * nu + 4 * nx + nu)
+                         + 2 * nu * nu * nx),
+           "apply_fwd": K * (4 * nx * nx + 6 * nx * nu + 4 * nx
+                             + 2 * nu * nu + nu)}[name]
+    return B * N * per
+
+
 def kernel_phase(kr, device, card):
     import torch
     results = {}
@@ -216,16 +267,26 @@ def kernel_phase(kr, device, card):
                     lambda: kr.apply_fwd_cuda(*app_args, x["re"], *hw_p),
                     lambda: kr.apply_fwd_ref(*app_args, x["re"], *hw_p)),
             }
+            io = {"factor": (fac_args, fac_k),
+                  "assemble_factor": (asm_args, asm_k),
+                  "apply_bwd": (app_args + rhs, hw_k),
+                  "apply_fwd": (app_args + (x["re"],) + tuple(hw_p), fwd_k)}
             for name, (fk, fp) in times.items():
                 if K == 1 and name in ("factor", "assemble_factor"):
                     continue
                 ms = cuda_ms(fk, 20)
                 pms = cuda_ms(fp, 3, warmup=1)
+                ins, outs = io[name]
+                bms, by = bound(nbytes(*ins, *outs), riccati_ops(
+                    name, Bsz, N_MAIN, nx, NU, R, ns, K))
                 log(f"time {name:16s} [{tag}] kernel {ms:.4f} ms, plain "
-                    f"{pms:.4f} ms  ({card})")
+                    f"{pms:.4f} ms, bound {bms:.4f} ms ({by}); no single "
+                    f"PyTorch call computes it  ({card})")
                 key = "" if K == NS + 1 else "_k1"
-                results[name]["ms" + key] = ms
-                results[name]["plain_ms" + key] = pms
+                results[name].update({"ms" + key: ms, "plain_ms" + key: pms,
+                                      "bound_ms" + key: bms,
+                                      "bound_by" + key: by})
+                results[name]["library_ms"] = None
 
     # NaN poison: instance 5 of 37 gets an indefinite pivot at stage 17
     x = kernel_inputs(37, N_MAIN, 1, SEED + 99, device)
@@ -249,8 +310,163 @@ def kernel_phase(kr, device, card):
     return results
 
 
+def spd_inputs(Bsz, n, seed, device):
+    """Seeded SPD matrices M M'/n + I + diag(d) with d spanning the dense
+    IPM's complementarity diagonals (1e-1 .. 1e7, the f32 cap), and a
+    right-hand side."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    M = rng.standard_normal((Bsz, n, n))
+    d = 10.0 ** rng.uniform(-1.0, 7.0, (Bsz, n))
+    K = (M @ np.swapaxes(M, -1, -2) / n + np.eye(n)
+         + d[:, :, None] * np.eye(n))
+    b = rng.standard_normal((Bsz, n))
+    return (torch.tensor(K, dtype=torch.float32, device=device),
+            torch.tensor(b, dtype=torch.float32, device=device))
+
+
+def chol_entrywise(K, b, L_k, L_p, x_k, x_p, tag):
+    """K6 and K7 against their plain versions entry by entry, each entry at
+    its own scale.  K's diagonal spans 1e-1..1e7, so the normwise check
+    (max |k - p| / max |p|) allows every entry of L an error near 0.3 and
+    every entry of x one near 1e-4 max|x|: far more than the sub-diagonal
+    of L and the x of the heavy rows hold.  Here, in f64, a factor L is held
+    by L L' against L_p L_p', relative to |L_p||L_p'| per entry, and a
+    solution x by L_p L_p' (x - x_p), relative to |L_p||L_p'||x_p| per
+    row: the componentwise backward errors of Cholesky and of the two
+    triangular solves, which are below ~(3n+1) u for any right f32 kernel
+    (u = 6e-8; Higham, Accuracy and Stability of Numerical Algorithms,
+    Thms 10.3-10.4).  Planted faults on the same data must fail it."""
+    import torch
+    Lp = L_p.double()
+    LL, absLL = torch.bmm(Lp, Lp.mT), torch.bmm(Lp.abs(), Lp.abs().mT)
+
+    def fac(L):
+        L = L.double()
+        return float(((torch.bmm(L, L.mT) - LL).abs() / absLL).max())
+
+    def sol(x):
+        e = (x.double() - x_p.double())[..., None]
+        den = torch.bmm(absLL, x_p.double().abs()[..., None])
+        return float((torch.bmm(LL, e).abs() / den).max())
+
+    Kd = torch.diagonal(K, dim1=-2, dim2=-1)
+    errs = {"chol_factor": fac(L_k), "chol_solve": sol(x_k)}
+    faults = {
+        "factor, sub-diagonal zeroed": fac(torch.diag_embed(
+            torch.diagonal(L_p, dim1=-2, dim2=-1))),
+        "factor, left-looking update skipped": fac(
+            torch.tril(K) * torch.rsqrt(Kd)[:, None, :]),
+        "solve, off-diagonal terms dropped where K_ii >= 1e4": sol(
+            torch.where(Kd >= 1e4, b / Kd, x_p)),
+    }
+    for name, err in errs.items():
+        log(f"kernel {name:16s} [{tag}] entrywise backward err {err:.3e} "
+            f"(tol {KERNEL_RTOL:.0e})")
+        check(err <= KERNEL_RTOL, f"{name} [{tag}]: entrywise err "
+              f"{err:.3e} > {KERNEL_RTOL:.0e}")
+    log(f"kernel {'chol planted':16s} [{tag}] " + ", ".join(
+        f"{k}: {v:.3e}" for k, v in faults.items()))
+    check(all(v > KERNEL_RTOL for v in faults.values()),
+          f"chol [{tag}]: a planted fault passes the entrywise check")
+
+
+def dense_kernel_phase(device, card):
+    """Condense (K5) and the dense Cholesky factor and solve (K6, K7)
+    against their plain versions."""
+    import numpy as np
+    import torch
+    from fsae_mpc_tpu_torch.ops.kernels import chol as kc
+    from fsae_mpc_tpu_torch.ops.kernels import condense as kcd
+
+    results = {}
+    for Bsz, nx in ((B_MAIN, NX), (37, NX), (37, 5)):
+        tag = f"B={Bsz} nx={nx}"
+        rng = np.random.default_rng(SEED + Bsz + nx)
+        as_t = lambda a: torch.tensor(a, dtype=torch.float32, device=device)
+        Ad = as_t(np.eye(nx) + 0.05 * rng.standard_normal((Bsz, N_MAIN, nx,
+                                                            nx)))
+        Bd = as_t(0.1 * rng.standard_normal((Bsz, N_MAIN, nx, NU)))
+        dd = as_t(0.1 * rng.standard_normal((Bsz, N_MAIN, nx)))
+        out_k = kcd.condense_cuda(Ad, Bd, dd)
+        out_p = kcd.condense_ref(Ad, Bd, dd)
+        torch.cuda.synchronize()
+        compare("condense", out_k, out_p, results, tag)
+        if Bsz == B_MAIN:
+            ms = cuda_ms(lambda: kcd.condense_cuda(Ad, Bd, dd), 20)
+            pms = cuda_ms(lambda: kcd.condense_ref(Ad, Bd, dd), 3, warmup=1)
+            ops = Bsz * N_MAIN * 2 * nx * nx * (N_MAIN * NU + nx + 1)
+            bms, by = bound(nbytes(Ad, Bd, dd, *out_k), ops)
+            log(f"time {'condense':16s} [{tag}] kernel {ms:.4f} ms, plain "
+                f"{pms:.4f} ms, bound {bms:.4f} ms ({by}); no single "
+                f"PyTorch call computes it  ({card})")
+            results["condense"].update(ms=ms, plain_ms=pms, bound_ms=bms,
+                                       bound_by=by, library_ms=None)
+
+    for n in N_DENSE:
+        for Bsz in (B_MAIN, 37):
+            tag = f"B={Bsz} n={n}"
+            K, b = spd_inputs(Bsz, n, SEED + Bsz + n, device)
+            L_k = kc.factor_cuda(K)
+            # cholesky_ex gives a column-major factor; the kernels take the
+            # row-major layout of their own outputs
+            L_p = kc.factor_ref(K).contiguous()
+            # the solve on the plain factor, so each kernel is held against
+            # its own plain version on the same inputs
+            x_k = kc.solve_cuda(L_p, b)
+            x_p = kc.solve_ref(L_p, b)
+            torch.cuda.synchronize()
+            compare("chol_factor", (L_k,), (L_p,), results, tag)
+            compare("chol_solve", (x_k,), (x_p,), results, tag)
+            chol_entrywise(K, b, L_k, L_p, x_k, x_p, tag)
+            if Bsz != B_MAIN or n != N_DENSE[0]:
+                continue
+            tri = n * (n + 1) // 2
+            cases = {
+                # the lower triangle of K in, the full L out
+                "chol_factor": (
+                    lambda: kc.factor_cuda(K), lambda: kc.factor_ref(K),
+                    lambda: torch.linalg.cholesky_ex(K),
+                    "torch.linalg.cholesky_ex",
+                    4 * Bsz * (tri + n * n), Bsz * n ** 3 / 3),
+                # the lower triangle of L and b in, x out
+                "chol_solve": (
+                    lambda: kc.solve_cuda(L_p, b),
+                    lambda: kc.solve_ref(L_p, b),
+                    lambda: torch.cholesky_solve(b[..., None], L_p),
+                    "torch.cholesky_solve",
+                    4 * Bsz * (tri + 2 * n), Bsz * 2 * n * n),
+            }
+            for name, (fk, fp, fl, lib, nb, ops) in cases.items():
+                ms = cuda_ms(fk, 20)
+                pms = cuda_ms(fp, 10)
+                lms = cuda_ms(fl, 10)
+                bms, by = bound(nb, ops)
+                log(f"time {name:16s} [{tag}] kernel {ms:.4f} ms, plain "
+                    f"{pms:.4f} ms, {lib} {lms:.4f} ms, bound {bms:.4f} ms "
+                    f"({by})  ({card})")
+                results[name].update(ms=ms, plain_ms=pms, library_ms=lms,
+                                     bound_ms=bms, bound_by=by)
+
+    # NaN poison: instance 5 of 37 is indefinite
+    K, b = spd_inputs(37, N_DENSE[0], SEED + 99, device)
+    K[5] -= 1e8 * torch.eye(N_DENSE[0], device=device)
+    L = kc.factor_cuda(K)
+    x = kc.solve_cuda(L, b)
+    others = torch.ones(37, dtype=torch.bool, device=device)
+    others[5] = False
+    poisoned = bool(torch.isnan(L[5]).any()) and bool(torch.isnan(x[5]).all())
+    clean = (bool(torch.isfinite(L[others]).all())
+             and bool(torch.isfinite(x[others]).all()))
+    log(f"kernel {'chol_factor/solve':16s} [NaN poison] instance 5 NaN: "
+        f"{poisoned}, other 36 finite: {clean}")
+    check(poisoned and clean, "chol: NaN poison not isolated")
+    return results
+
+
 # ---------------------------------------------------------------------------
-# phase 3: the main path
+# phase 3: the main paths
 # ---------------------------------------------------------------------------
 
 
@@ -296,42 +512,102 @@ def closed_loop_step(track, params, mpc):
     return vmap(lambda x, u: integrators.rk4_step(f, x, u, mpc.dt))
 
 
-def main_path(device, card, kres):
+def kernel_modules():
+    from fsae_mpc_tpu_torch.ops.kernels import chol, condense, riccati
+    return {"riccati.cu": riccati, "condense.cu": condense, "chol.cu": chol}
+
+
+def reset_launches() -> None:
+    for mod in kernel_modules().values():
+        for k in mod.KERNELS.values():
+            k.launches = 0
+
+
+def launches() -> dict:
+    return {name: k.launches for mod in kernel_modules().values()
+            for name, k in mod.KERNELS.items()}
+
+
+def schedule_of(backend, opts, ticks):
+    """Kernel launches of one cold solve and ``ticks - 1`` warm ticks.
+    Riccati: the cold start adds one factor and one apply; each IPM
+    iteration runs one assemble_factor and a K=ns+1 and a K=1 apply.
+    Dense: one condense per tick; the cold (centered) start adds one
+    Cholesky factor and solve; each iteration factors once and solves
+    twice (predictor, corrector; these presets have no scale_kkt,
+    correctors or polish)."""
+    assert not (opts.scale_kkt or opts.correctors or opts.polish)
+    iters = opts.max_iters + opts.refine_restart * opts.refine_iters
+    exp = {k: 0 for k in launches()}
+    if backend == "riccati":
+        exp.update(factor=1, assemble_factor=iters * ticks,
+                   apply_bwd=1 + 2 * iters * ticks,
+                   apply_fwd=1 + 2 * iters * ticks)
+    else:
+        exp.update(condense=ticks, chol_factor=1 + iters * ticks,
+                   chol_solve=1 + 2 * iters * ticks)
+    return exp, iters
+
+
+def kernel_ms_per_tick(backend, kres, iters):
+    """The hand kernels' share of a warm tick: per-launch times (phase 2)
+    times launches per warm tick."""
+    if backend == "riccati":
+        return iters * (kres["assemble_factor"]["ms"]
+                        + kres["apply_bwd"]["ms"] + kres["apply_fwd"]["ms"]
+                        + kres["apply_bwd"]["ms_k1"]
+                        + kres["apply_fwd"]["ms_k1"])
+    return kres["condense"]["ms"] + iters * (kres["chol_factor"]["ms"]
+                                             + 2 * kres["chol_solve"]["ms"])
+
+
+def build_qp(backend, ltv, model, xc, x_ref, xl, ul):
+    """The tick's first layer alone (linearisation, constraint rows,
+    condensing for the dense backend, QP assembly)."""
+    track, params, mpc = model
+    if backend == "riccati":
+        return ltv.build_stage_qp_dynamic(xc, x_ref, track, params, mpc, xl,
+                                          ul)[0]
+    return ltv.build_qp_dynamic(xc, x_ref, track, params, mpc, xl, ul)[0]
+
+
+def solve_built(backend, qp, opts, warm):
+    from fsae_mpc_tpu_torch.ops import ipm, riccati
+    if backend == "riccati":
+        return riccati.solve_stage_qp(qp, opts, warm=warm)
+    return ipm.solve_qp(*qp[:7], opts, warm=warm)
+
+
+def main_path(backend, model, device, card, kres):
+    """One cold solve and WARM_TICKS warm ticks of
+    ``ltv_mpc_dynamic(backend=...)`` at B=1024 under each f32 preset, in
+    closed loop with the RK4 plant; every launch count is set to 0 just
+    before and read just after."""
     import torch
-    from fsae_mpc_tpu_torch.config import MPC_F32, VehicleParams
     from fsae_mpc_tpu_torch.mpc import ltv
     from fsae_mpc_tpu_torch.ops import ipm
-    from fsae_mpc_tpu_torch.ops.kernels import riccati as kr
-    from fsae_mpc_tpu_torch.track import load_track
 
-    f32 = torch.float32
-    mpc, params = MPC_F32, VehicleParams()
-    track, _ = load_track(os.path.join(ROOT, "data", "fsg2019.csv"),
-                          dtype=f32, device=device)
+    track, params, mpc = model
     step = closed_loop_step(track, params, mpc)
-    make_ref = lambda x0: reference(x0, mpc)
-    x0_t, x_lin_t, u_lin_t = initial_batch(B_MAIN, mpc, f32, device)
-    # IPM iterations per solve and kernel launches per iteration / per cold
-    # solve (init_solve: one factor + one apply)
-    schedule = {}
+    x0_t, x_lin_t, u_lin_t = initial_batch(B_MAIN, mpc, torch.float32,
+                                           device)
+    schedule = {k: 0 for k in launches()}
     out = {}
-    kr.reset_launches()
+    reset_launches()
     for name, opts in (("F32_OPTS", ipm.F32_OPTS),
                        ("F32_PRODUCTION", ipm.F32_PRODUCTION)):
-        iters = opts.max_iters + opts.refine_restart * opts.refine_iters
-        ticks = 1 + WARM_TICKS
-        exp = {"factor": 1, "assemble_factor": iters * ticks,
-               "apply_bwd": 1 + 2 * iters * ticks,
-               "apply_fwd": 1 + 2 * iters * ticks}
+        exp, iters = schedule_of(backend, opts, 1 + WARM_TICKS)
         for k, v in exp.items():
-            schedule[k] = schedule.get(k, 0) + v
-        before = kr.launches()
+            schedule[k] += v
+        before = launches()
+        tick = lambda xc, xl, ul, warm=None: ltv.ltv_mpc_dynamic(
+            xc, reference(xc, mpc), track, params, mpc, xl, ul, opts,
+            warm=warm, backend=backend)
 
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        x_ref = make_ref(x0_t)
-        res = ltv.ltv_mpc_dynamic_riccati(x0_t, x_ref, track, params, mpc,
-                                          x_lin_t, u_lin_t, opts)
+        res = tick(x0_t, x_lin_t, u_lin_t)
         torch.cuda.synchronize()
         cold_s = time.perf_counter() - t0
         finite = [torch.isfinite(res.u_opt).all()]
@@ -343,59 +619,56 @@ def main_path(device, card, kres):
         t0 = time.perf_counter()
         for _ in range(WARM_TICKS):
             xc, xl, ul, warm = carry
-            x_ref = make_ref(xc)
-            res = ltv.ltv_mpc_dynamic_riccati(xc, x_ref, track, params, mpc,
-                                              xl, ul, opts, warm=warm)
+            res = tick(xc, xl, ul, warm)
             finite.append(torch.isfinite(res.u_opt).all())
-            last = (xc, x_ref, xl, ul, res)
+            last = (xc, reference(xc, mpc), xl, ul, res)
             carry = (step(xc, res.u_opt[:, 0]), res.x_opt, res.u_opt, res.qp)
         end.record()
         torch.cuda.synchronize()
         host_s = time.perf_counter() - t0
         tick_ms = start.elapsed_time(end) / WARM_TICKS
-        check(bool(torch.stack(finite).all()), f"{name}: non-finite u_opt")
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        check(bool(torch.stack(finite).all()),
+              f"{backend} {name}: non-finite u_opt")
         check(bool(torch.isfinite(carry[0]).all()),
-              f"{name}: non-finite closed-loop state")
-        got = {k: v - before[k] for k, v in kr.launches().items()}
-        log(f"main path {name}: cold solve {cold_s:.3f} s (includes first "
-            f"use), warm tick {tick_ms:.2f} ms (CUDA events; host "
-            f"{1e3 * host_s / WARM_TICKS:.2f} ms), "
-            f"{B_MAIN / (tick_ms / 1e3):.1f} solves/s at B={B_MAIN}  "
-            f"({card})")
-        log(f"main path {name}: launches {got}, schedule {exp}")
-        check(got == exp, f"{name}: launches {got} != schedule {exp}")
-        # per warm tick: one assemble_factor and a K=5 and a K=1 apply per
-        # IPM iteration, at the kernel phase's per-launch times
-        k_ms = iters * (kres["assemble_factor"]["ms"]
-                        + kres["apply_bwd"]["ms"] + kres["apply_fwd"]["ms"]
-                        + kres["apply_bwd"]["ms_k1"]
-                        + kres["apply_fwd"]["ms_k1"])
-        log(f"main path {name}: hand kernels ~{k_ms:.2f} ms of the "
-            f"{tick_ms:.2f} ms warm tick ({100 * k_ms / tick_ms:.1f}%; "
+              f"{backend} {name}: non-finite closed-loop state")
+        got = {k: v - before[k] for k, v in launches().items()}
+        log(f"main path {backend} {name}: cold solve {cold_s:.3f} s "
+            f"(includes first use), warm tick {tick_ms:.2f} ms (CUDA "
+            f"events; host {1e3 * host_s / WARM_TICKS:.2f} ms), "
+            f"{B_MAIN / (tick_ms / 1e3):.1f} solves/s at B={B_MAIN}, peak "
+            f"device memory {peak_gb:.3f} GB  ({card})")
+        log(f"main path {backend} {name}: launches {got}, schedule {exp}")
+        check(got == exp, f"{backend} {name}: launches {got} != schedule "
+              f"{exp}")
+        k_ms = kernel_ms_per_tick(backend, kres, iters)
+        log(f"main path {backend} {name}: hand kernels ~{k_ms:.2f} ms of "
+            f"the {tick_ms:.2f} ms warm tick ({100 * k_ms / tick_ms:.1f}%; "
             f"per-launch times x launches)")
-        out[name] = dict(last=last, tick_ms=tick_ms)
-    total = kr.launches()
-    check(total == schedule, f"launches {total} != schedule {schedule}")
-    # the tick's first layer alone: linearisation + constraint rows + QP
+        out[name] = dict(last=last, tick_ms=tick_ms, peak_gb=peak_gb)
+    total = launches()
+    check(total == schedule, f"{backend}: launches {total} != schedule "
+          f"{schedule}")
+    on_path = [k for k, v in schedule.items() if v]
+    check(all(total[k] > 0 for k in on_path),
+          f"{backend}: a kernel never ran: {total}")
     xc, x_ref, xl, ul, _ = out["F32_OPTS"]["last"]
-    build_ms = cuda_ms(lambda: ltv.build_stage_qp_dynamic(
-        xc, x_ref, track, params, mpc, xl, ul), 3, warmup=1)
-    log(f"main path: build_stage_qp_dynamic {build_ms:.2f} ms of the warm "
+    build_ms = cuda_ms(lambda: build_qp(backend, ltv, model, xc, x_ref, xl,
+                                        ul), 3, warmup=1)
+    log(f"main path {backend}: QP build {build_ms:.2f} ms of the warm "
         f"tick at B={B_MAIN}  ({card})")
-    check(all(v > 0 for v in total.values()), f"a kernel never ran: {total}")
-    return out, total, (track, params, mpc)
+    return out, {k: total[k] for k in on_path}
 
 
-def sync_check(out, model):
+def sync_check(backend, out, model):
     """The f32 tick must not synchronise with the host (so that a later
     change can capture it in a CUDA graph): one more warm tick of each
     preset under ``torch.cuda.set_sync_debug_mode("warn")``."""
     import warnings
     import torch
     from fsae_mpc_tpu_torch.mpc import ltv
-    from fsae_mpc_tpu_torch.ops import ipm, riccati
+    from fsae_mpc_tpu_torch.ops import ipm
 
-    track, params, mpc = model
     counts = {}
     for name, opts in (("F32_OPTS", ipm.F32_OPTS),
                        ("F32_PRODUCTION", ipm.F32_PRODUCTION)):
@@ -405,10 +678,9 @@ def sync_check(out, model):
             warnings.simplefilter("always")
             torch.cuda.set_sync_debug_mode("warn")
             try:
-                qp, _ = ltv.build_stage_qp_dynamic(xc, x_ref, track, params,
-                                                   mpc, xl, ul)
+                qp = build_qp(backend, ltv, model, xc, x_ref, xl, ul)
                 n_build = len(caught)
-                riccati.solve_stage_qp(qp, opts, warm=res.qp)
+                solve_built(backend, qp, opts, res.qp)
             finally:
                 torch.cuda.set_sync_debug_mode("default")
         torch.cuda.synchronize()
@@ -419,10 +691,10 @@ def sync_check(out, model):
                         sum(i >= n_build for i in syncs))
         sites = sorted({f"{os.path.relpath(caught[i].filename, ROOT)}:"
                         f"{caught[i].lineno}" for i in syncs})
-        log(f"host syncs {name}: build_stage_qp_dynamic {counts[name][0]}, "
-            f"solve_stage_qp {counts[name][1]}  {sites[:8]}")
+        log(f"host syncs {backend} {name}: QP build {counts[name][0]}, "
+            f"solve {counts[name][1]}  {sites[:8]}")
     check(all(v == (0, 0) for v in counts.values()),
-          f"the f32 tick synchronises with the host: {counts}")
+          f"the {backend} f32 tick synchronises with the host: {counts}")
 
 
 # ---------------------------------------------------------------------------
@@ -430,44 +702,49 @@ def sync_check(out, model):
 # ---------------------------------------------------------------------------
 
 
-def control_errors(tag, qp, u32, ref_u=None):
-    """First-control max and mean control error of ``u32`` against a tight
-    f64 solve of the same QP data (``ref_u``, or solved here on CPU
-    tensors: the port's plain path, on purpose)."""
+def to_cpu64(t):
+    import torch
+    return t.detach().to("cpu", torch.float64)
+
+
+def reference_u(backend, qp, N):
+    """A tight f64 solve of the same QP data on CPU tensors (the port's
+    plain path, on purpose): the controls (B, N, nu)."""
     import dataclasses
     import torch
     from fsae_mpc_tpu_torch.ops import ipm, riccati
 
-    t0 = time.perf_counter()
-    if ref_u is None:
-        qp64 = riccati.StageQP(**{
-            f.name: getattr(qp, f.name).detach().to("cpu", torch.float64)
-            for f in dataclasses.fields(qp)})
-        ref = riccati.solve_stage_qp(qp64, ipm.IpmOptions(max_iters=60))
-        check(bool(torch.isfinite(ref.u).all()), f"{tag}: f64 reference "
-              "non-finite")
-        ref_u = ref.u
-    solve_s = time.perf_counter() - t0
-    du = (u32.detach().to("cpu", torch.float64) - ref_u).abs()
+    tight = ipm.IpmOptions(max_iters=60)
+    if backend == "riccati":
+        qp64 = riccati.StageQP(**{f.name: to_cpu64(getattr(qp, f.name))
+                                  for f in dataclasses.fields(qp)})
+        u = riccati.solve_stage_qp(qp64, tight).u
+    else:
+        x = ipm.solve_qp(*[to_cpu64(a) for a in qp[:7]], tight).x
+        u = x[:, :N * NU].reshape(-1, N, NU)
+    check(bool(torch.isfinite(u).all()), f"{backend}: f64 reference "
+          "non-finite")
+    return u
+
+
+def control_errors(tag, u32, ref_u, seconds):
+    du = (to_cpu64(u32) - ref_u).abs()
     fc, mean = float(du[:, 0].max()), float(du.mean())
     log(f"accuracy {tag}: first-control max {fc:.3e} (bar "
         f"{ACC_BARS['first_control_max']:.0e}), mean {mean:.3e} (bar "
-        f"{ACC_BARS['mean_control']:.0e}); f64 reference {solve_s:.1f} s")
-    return fc, mean, ref_u
+        f"{ACC_BARS['mean_control']:.0e}); f64 reference {seconds:.1f} s")
+    return fc, mean
 
 
-def accuracy(out, model, device):
+def accuracy_record_regime(model, device):
+    """(a) three ticks of f64 history on CPU tensors, then each preset's
+    cold f32 Riccati solve of the fourth tick's QP on the card."""
     import dataclasses
     import torch
     from fsae_mpc_tpu_torch.mpc import ltv
     from fsae_mpc_tpu_torch.ops import ipm, riccati
 
     track, params, mpc = model
-    presets = {"F32_OPTS": ipm.F32_OPTS,
-               "F32_PRODUCTION": ipm.F32_PRODUCTION}
-
-    # (a) three ticks of f64 history on CPU tensors, then each preset's
-    # cold f32 solve of the fourth tick's QP on the card
     f64, cpu = torch.float64, torch.device("cpu")
     track64 = track.to(cpu, f64)
     step = closed_loop_step(track64, params, mpc)
@@ -482,32 +759,92 @@ def accuracy(out, model, device):
     qp32 = riccati.StageQP(**{
         f.name: getattr(qp64, f.name).to(device, torch.float32)
         for f in dataclasses.fields(qp64)})
-    ref_u = None
-    for name, opts in presets.items():
-        u32 = riccati.solve_stage_qp(qp32, opts).u
+    t0 = time.perf_counter()
+    ref_u = reference_u("riccati", qp64, mpc.n_steps)
+    secs = time.perf_counter() - t0
+    for name in ("F32_OPTS", "F32_PRODUCTION"):
+        u32 = riccati.solve_stage_qp(qp32, getattr(ipm, name)).u
         check(bool(torch.isfinite(u32).all()), f"{name}: non-finite u")
-        fc, mean, ref_u = control_errors(
-            f"{name} (a: {REC_BATCH} instances after {REC_TICKS} f64 ticks, "
-            "cold f32 solve)", qp64, u32, ref_u)
+        fc, mean = control_errors(
+            f"riccati {name} (a: {REC_BATCH} instances after {REC_TICKS} "
+            "f64 ticks, cold f32 solve)", u32, ref_u, secs)
         if name == "F32_PRODUCTION":
             check(fc <= ACC_BARS["first_control_max"]
                   and mean <= ACC_BARS["mean_control"],
                   f"{name}: accuracy {fc:.3e}/{mean:.3e} outside the bars")
 
-    # (b) the last warm tick of the main path
+
+def accuracy_warm_chain(backend, out, model):
+    """(b) the last warm tick of the main path, ACC_SUBSET instances."""
+    from fsae_mpc_tpu_torch.mpc import ltv
+
+    mpc = model[2]
+    refs = {}
     for name, d in out.items():
         xc, x_ref, xl, ul, res = d["last"]
         sub = slice(0, ACC_SUBSET)
-        qp, _ = ltv.build_stage_qp_dynamic(xc[sub], x_ref[sub], track,
-                                           params, mpc, xl[sub], ul[sub])
-        fc, mean, _ = control_errors(
-            f"{name} (b: warm tick {WARM_TICKS}, {ACC_SUBSET} instances)",
-            qp, res.u_opt[sub])
+        qp = build_qp(backend, ltv, model, xc[sub], x_ref[sub], xl[sub],
+                      ul[sub])
+        t0 = time.perf_counter()
+        ref_u = reference_u(backend, qp, mpc.n_steps)
+        fc, mean = control_errors(
+            f"{backend} {name} (b: warm tick {WARM_TICKS}, {ACC_SUBSET} "
+            "instances)", res.u_opt[sub], ref_u, time.perf_counter() - t0)
+        refs[name] = ref_u
         if name in ACC_GUARD:
             g_fc, g_mean = ACC_GUARD[name]
             check(fc <= g_fc and mean <= g_mean,
-                  f"{name}: accuracy {fc:.3e}/{mean:.3e} outside the guard "
-                  f"{g_fc:.0e}/{g_mean:.0e}")
+                  f"{backend} {name}: accuracy {fc:.3e}/{mean:.3e} outside "
+                  f"the guard {g_fc:.0e}/{g_mean:.0e}")
+    return refs
+
+
+def accuracy_same_qp(out, dense_refs, model):
+    """(c) the dense and Riccati ticks on the same x0 and linearisation
+    (the dense path's last F32_PRODUCTION tick) solve the same QP: cold
+    f32 solves of both on the card, and tight f64 solves of both."""
+    import torch
+    from fsae_mpc_tpu_torch.mpc import ltv
+    from fsae_mpc_tpu_torch.ops import ipm
+
+    track, params, mpc = model
+    xc, x_ref, xl, ul, _ = out["F32_PRODUCTION"]["last"]
+    u = {b: ltv.ltv_mpc_dynamic(xc, x_ref, track, params, mpc, xl, ul,
+                                ipm.F32_PRODUCTION, backend=b).u_opt
+         for b in ("dense", "riccati")}
+    du = (u["dense"][:, 0] - u["riccati"][:, 0]).abs()
+    log(f"accuracy (c) dense vs riccati, same QP, cold F32_PRODUCTION on "
+        f"the card, B={B_MAIN}: first control max {float(du.max()):.3e}, "
+        f"mean {float(du.mean()):.3e}")
+    sub = slice(0, ACC_SUBSET)
+    qp = build_qp("riccati", ltv, model, xc[sub], x_ref[sub], xl[sub],
+                  ul[sub])
+    ric64 = reference_u("riccati", qp, mpc.n_steps)
+    d64 = (dense_refs["F32_PRODUCTION"][:, 0] - ric64[:, 0]).abs()
+    log(f"accuracy (c) dense vs riccati, same QP, tight f64 on the CPU, "
+        f"{ACC_SUBSET} instances: first control max {float(d64.max()):.3e},"
+        f" mean {float(d64.mean()):.3e}")
+    check(float(d64.max()) <= ACC_BARS["first_control_max"],
+          "dense and Riccati f64 solves of the same QP disagree beyond the "
+          "first-control bar")
+
+
+def kernel_line(kres, paths):
+    """The ``kernels`` JSON object: every kernel with its launches on its
+    main path's run, its parity and its times beside its bound."""
+    out = []
+    for source, mod in kernel_modules().items():
+        for name, k in mod.KERNELS.items():
+            r = kres[name]
+            out.append({
+                "name": name, "route": "cuda",
+                "source": f"fsae_mpc_tpu_torch/csrc/{source}",
+                "replaces": k.replaces,
+                "launches": next(p[name] for p in paths if name in p),
+                "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    return {"kernels": out}
 
 
 def main() -> int:
@@ -521,7 +858,10 @@ def main() -> int:
         log(f"FAIL: torch.cuda.is_available() is False (card: {card})")
         return 2
     sys.path.insert(0, ROOT)
+    from fsae_mpc_tpu_torch.config import MPC_F32, VehicleParams
+    from fsae_mpc_tpu_torch.ops.kernels import build as kbuild
     from fsae_mpc_tpu_torch.ops.kernels import riccati as kr
+    from fsae_mpc_tpu_torch.track import load_track
 
     device = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -530,32 +870,38 @@ def main() -> int:
     log(f"card: {card}; torch {torch.__version__} cuda {torch.version.cuda}")
     try:
         t0 = time.perf_counter()
-        lib = kr.build_library()
-        log(f"build: {os.path.relpath(lib, ROOT)} in "
-            f"{time.perf_counter() - t0:.1f} s")
-        with open(lib[:-3] + ".log") as f:
-            for line in f:
-                if ("registers" in line or "spill" in line
-                        or "Compiling entry" in line):
-                    log("ptxas: " + line.strip())
+        libs = kbuild.build()
+        log(f"build: {[os.path.relpath(lib, ROOT) for lib in libs]} in "
+            f"{time.perf_counter() - t0:.1f} s (one nvcc per source, "
+            "in parallel)")
+        for lib in libs:
+            with open(lib[:-3] + ".log") as f:
+                for line in f:
+                    if ("registers" in line or "spill" in line
+                            or "Compiling entry" in line):
+                        log("ptxas: " + line.strip())
         kres = kernel_phase(kr, device, card)
-        out, launches, model = main_path(device, card, kres)
-        sync_check(out, model)
-        accuracy(out, model, device)
+        kres.update(dense_kernel_phase(device, card))
+        track, _ = load_track(os.path.join(ROOT, "data", "fsg2019.csv"),
+                              dtype=torch.float32, device=device)
+        model = (track, VehicleParams(), MPC_F32)
+        paths, outs = [], {}
+        for backend in ("riccati", "dense"):
+            outs[backend], counts = main_path(backend, model, device, card,
+                                              kres)
+            paths.append(counts)
+            sync_check(backend, outs[backend], model)
+        accuracy_record_regime(model, device)
+        accuracy_warm_chain("riccati", outs["riccati"], model)
+        dense_refs = accuracy_warm_chain("dense", outs["dense"], model)
+        accuracy_same_qp(outs["dense"], dense_refs, model)
+        line = kernel_line(kres, paths)
     except Fail as e:
         log(f"FAIL: {e}")
         return 1
 
-    kernels = []
-    for name, k in kr.KERNELS.items():
-        kernels.append({
-            "name": name, "route": "cuda",
-            "source": "fsae_mpc_tpu_torch/csrc/riccati.cu",
-            "replaces": k.replaces, "launches": launches[name],
-            "max_abs_err": kres[name]["max_abs_err"],
-            "ms": kres[name]["ms"], "plain_ms": kres[name]["plain_ms"]})
     print(card_line(), flush=True)
-    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

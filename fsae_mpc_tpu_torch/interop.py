@@ -3,8 +3,10 @@
 The JAX package's containers are plain dataclasses of arrays; pass their
 fields as a mapping of numpy arrays (``{f: np.asarray(getattr(obj, f))}``
 or ``dataclasses.asdict``) and get the port's counterpart on a device, in
-a dtype.  Batched JAX data (``vmap`` outputs) already has the port's
-batch-first layout.  Nothing here imports ``jax``.
+a dtype (by default on the CUDA device, like every entry point of the
+port: a caller without a card asks for ``device="cpu"``).  Batched JAX
+data (``vmap`` outputs) already has the port's batch-first layout.
+Nothing here imports ``jax``.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import numpy as np
 import torch
 
 from .config import MPCParams, VehicleParams
+from .ops.ipm import IpmResult
 from .ops.riccati import StageIpmResult, StageQP
 from .track.track import Track
 
@@ -32,7 +35,7 @@ def _fields(cls, src: Mapping, dtype, device):
                   for f in dataclasses.fields(cls)})
 
 
-def track(px, py, dl, L, dtype=torch.float64, device=None) -> Track:
+def track(px, py, dl, L, dtype=torch.float64, device="cuda") -> Track:
     """Track coefficients ``(px (M, 4), py (M, 4), dl, L)``."""
     return Track(px=_tensor(px, dtype, device), py=_tensor(py, dtype, device),
                  dl=_tensor(dl, dtype, device), L=_tensor(L, dtype, device))
@@ -48,16 +51,23 @@ def mpc_params(src: Mapping) -> MPCParams:
                         for f in dataclasses.fields(MPCParams)})
 
 
-def stage_qp(src: Mapping, dtype=torch.float64, device=None) -> StageQP:
+def stage_qp(src: Mapping, dtype=torch.float64, device="cuda") -> StageQP:
     """A (batched) ``fsae_mpc_tpu.ops.riccati.StageQP``."""
     return _fields(StageQP, src, dtype, device)
 
 
 def stage_ipm_result(src: Mapping, dtype=torch.float64,
-                     device=None) -> StageIpmResult:
+                     device="cuda") -> StageIpmResult:
     """A (batched) ``StageIpmResult`` -- the solver state one tick hands to
     the next as its warm start."""
     return _fields(StageIpmResult, src, dtype, device)
+
+
+def ipm_result(src: Mapping, dtype=torch.float64,
+               device="cuda") -> IpmResult:
+    """A (batched) ``fsae_mpc_tpu.ops.ipm.IpmResult`` -- the dense
+    solver's state one tick hands to the next as its warm start."""
+    return _fields(IpmResult, src, dtype, device)
 
 
 def to_numpy(obj) -> dict:

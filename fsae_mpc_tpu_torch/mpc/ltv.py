@@ -1,12 +1,18 @@
-"""Dynamic-model LTV-MPC tick on the stage-wise Riccati solver (port of the
-stage path of ``fsae_mpc_tpu.mpc.ltv``; the condensed dense path, the
-kinematic controller and the planners are not ported yet).
+"""Dynamic-model LTV-MPC ticks (port of the dynamic controller of
+``fsae_mpc_tpu.mpc.ltv``; the kinematic controller is not ported yet).
 
 Per tick and per instance of the batch: linearise the RK4 step of the
-curvilinear dynamic model along the previous trajectory, build the
-slip/friction/track constraint rows, assemble the uncondensed
-:class:`ops.riccati.StageQP` and solve it.  Every tensor carries a leading
-batch dimension B.
+curvilinear dynamic model along the previous trajectory and build the
+slip/friction/track constraint rows, then either
+
+  * (``backend="dense"``, the default) condense the horizon
+    (``CONDENSERS``), assemble the condensed QP over the N*nu controls and
+    the slacks (:func:`assemble_condensed_qp`), solve it with the dense
+    IPM (``ops/ipm.py``) and roll the states out; or
+  * (``backend="riccati"``) assemble the uncondensed
+    :class:`ops.riccati.StageQP` and solve it stage-wise.
+
+Both solve the same QP.  Every tensor carries a leading batch dimension B.
 """
 
 from __future__ import annotations
@@ -22,7 +28,19 @@ from ..models import curvilinear as cm
 from ..models import integrators
 from ..ops import ipm
 from ..ops import riccati
+from ..ops.condense import condense as _condense
+from ..ops.condense import rollout as _rollout
+from ..ops.kernels import condense as _kcondense
+from ..ops.precision import highest as _highest_precision
 from . import constraints as cons
+
+# Condensing backends: "pallas" names the hand-written kernel
+# (``ops/kernels/condense.py``: the kernel on CUDA tensors, its plain
+# version on CPU tensors), "scan" the plain loop over stages.  The JAX
+# package's "dnc" (divide and conquer, a TPU-measured variant) is not
+# ported and raises.
+CONDENSERS = {"scan": _condense, "pallas": _kcondense.condense}
+DEFAULT_CONDENSE = "pallas"
 
 
 def _const(values, dtype, device) -> torch.Tensor:
@@ -42,7 +60,122 @@ class LtvResult:
     x_opt: torch.Tensor     # (B, N, nx) predicted optimal states
     slack: torch.Tensor     # (B, n_soft) slack values
     fval: torch.Tensor      # (B,) objective incl. the constant the QP drops
-    qp: riccati.StageIpmResult
+    qp: ipm.IpmResult | riccati.StageIpmResult
+
+
+@_highest_precision
+def _qp_cost(A_bar, B_bar, d_bar, x0, x_ref, q_diag, r_diag,
+             r_soft: Sequence[float], u_lb, u_ub):
+    """Shared cost/bounds assembly of the condensed QP
+    (``generate_qp.m:29-33``).  ``q_diag`` (N*nx,), ``r_diag`` (N*nu,)."""
+    Bsz, N, nx, ncu = B_bar.shape
+    n_soft = len(r_soft)
+    nv = ncu + n_soft
+    dtype, dev = B_bar.dtype, B_bar.device
+
+    B_flat = B_bar.reshape(Bsz, N * nx, ncu)
+    x_pred = torch.einsum("bnij,bj->bni", A_bar, x0) + d_bar    # (B, N, nx)
+    err = (x_pred - x_ref).reshape(Bsz, -1)
+
+    QB = B_flat * q_diag[:, None]
+    Hu = 2.0 * (B_flat.mT @ QB)
+    Hu = Hu + torch.diag_embed(2.0 * r_diag)
+    H = torch.zeros((Bsz, nv, nv), dtype=dtype, device=dev)
+    H[:, :ncu, :ncu] = Hu
+    g = torch.cat([2.0 * torch.einsum("bkj,bk->bj", QB, err),
+                   _const(r_soft, dtype, dev).expand(Bsz, n_soft)], 1)
+    const = (err * (q_diag * err)).sum(1)
+
+    lb_v = torch.cat([u_lb.reshape(Bsz, -1),
+                      torch.zeros((Bsz, n_soft), dtype=dtype, device=dev)],
+                     1)
+    ub_v = torch.cat([u_ub.reshape(Bsz, -1),
+                      torch.full((Bsz, n_soft), float("inf"), dtype=dtype,
+                                 device=dev)], 1)
+    return H, g, lb_v, ub_v, const, x_pred
+
+
+def _aligned(groups, N) -> bool:
+    return all(grp.C.shape[-3] == N
+               and np.array_equal(grp.state_rows, np.arange(N))
+               and np.array_equal(grp.ctrl_cols, np.arange(N))
+               for grp in groups)
+
+
+@_highest_precision
+def assemble_condensed_qp(A_bar, B_bar, d_bar, x0, x_ref, q_diag, r_diag,
+                          r_soft: Sequence[float], groups, u_lb, u_ub):
+    """Assemble the condensed QP over v = [u_0..u_{N-1}, sigma_1..sigma_k].
+
+    ``B_bar``: (B, N, nx, N*nu); ``groups``: stage-aligned
+    :class:`constraints.StageConstraint`s (``state_rows == ctrl_cols ==
+    arange(N)``, every LTV group).  Rows are group-major, each group's
+    stage-major, a soft two-sided group emitting its lower (+sigma) rows
+    and then its upper (-sigma) rows: the JAX package's order.  Returns
+    (H, g, A, lb, ub, lbA, ubA, const).  The JAX package's non-aligned
+    branch (collocation transcriptions) is not ported and raises.
+    """
+    Bsz, N, nx, ncu = B_bar.shape
+    nu = u_lb.shape[-1]
+    n_soft = len(r_soft)
+    dtype, dev = B_bar.dtype, B_bar.device
+    if ncu != N * nu or not _aligned(groups, N):
+        raise ValueError("condensed assembly of groups that are not "
+                         "stage-aligned (collocation) is not ported")
+
+    H, g, lb_v, ub_v, const, x_pred = _qp_cost(
+        A_bar, B_bar, d_bar, x0, x_ref, q_diag, r_diag, r_soft, u_lb, u_ub)
+
+    # ONE fused (N, R_tot, nx) @ (N, nx, N*nu) product and one
+    # block-diagonal D placement (static one-hot projections P) for all
+    # groups, then per-group slicing
+    C_all = torch.cat([grp.C for grp in groups], -2)          # (B, N, R, nx)
+    D_all = torch.cat([grp.D for grp in groups], -2)          # (B, N, R, nu)
+    P = np.zeros((N, nu, ncu))
+    for k in range(N):
+        P[k, :, k * nu:(k + 1) * nu] = np.eye(nu)
+    rows_all = (torch.einsum("bnri,bnij->bnrj", C_all, B_bar)
+                + torch.einsum("bnrk,nkj->bnrj", D_all,
+                               _const(P, dtype, dev)))
+    off_all = (torch.cat([grp.offset_const for grp in groups], -1)
+               + torch.einsum("bnri,bni->bnr", C_all, x_pred))
+
+    A_rows, lbA_rows, ubA_rows = [], [], []
+
+    def emit(rows, off, lo, hi, slack_col, sign):
+        s_cols = np.zeros((rows.shape[1], n_soft))
+        if slack_col is not None:
+            s_cols[np.arange(rows.shape[1]), slack_col] = sign
+        A_rows.append(torch.cat(
+            [rows, _const(s_cols, dtype, dev).expand(Bsz, -1, -1)], -1))
+        lbA_rows.append(_const(lo, dtype, dev) - off)
+        ubA_rows.append(_const(hi, dtype, dev) - off)
+
+    r_off = 0
+    for grp in groups:
+        r = grp.C.shape[-2]
+        rows_u = rows_all[:, :, r_off:r_off + r].reshape(Bsz, N * r, ncu)
+        offset = off_all[:, :, r_off:r_off + r].reshape(Bsz, N * r)
+        r_off += r
+        lb_g = np.broadcast_to(grp.lb, (N, r)).reshape(-1)
+        ub_g = np.broadcast_to(grp.ub, (N, r)).reshape(-1)
+        sidx = np.broadcast_to(grp.slack_idx, (N, r)).reshape(-1)
+        hard = sidx < 0
+        if np.all(hard):
+            emit(rows_u, offset, lb_g, ub_g, None, 0.0)
+        else:
+            if np.any(hard):
+                raise ValueError("mix of hard/soft rows within a group")
+            inf_v = np.full((len(lb_g),), np.inf)
+            if np.all(np.isfinite(lb_g)):
+                # lower side softened: g + sigma >= lb
+                emit(rows_u, offset, lb_g, inf_v, sidx, +1.0)
+            if np.all(np.isfinite(ub_g)):
+                # upper side softened: g - sigma <= ub
+                emit(rows_u, offset, -inf_v, ub_g, sidx, -1.0)
+
+    return (H, g, torch.cat(A_rows, 1), lb_v, ub_v, torch.cat(lbA_rows, 1),
+            torch.cat(ubA_rows, 1), const)
 
 
 def build_stage_rows(groups, N, nx, nu, n_soft, dtype):
@@ -155,12 +288,11 @@ def _dynamic_groups(x_lin, u_lin, mpc, params):
     ]
 
 
-def build_stage_qp_dynamic(x0, x_ref, track, params: VehicleParams,
-                           mpc: MPCParams, x_lin, u_lin,
-                           stepper: str = "rk4"):
-    """Assemble a batch of dynamic-model LTV ticks as uncondensed
-    :class:`ops.riccati.StageQP`s.  ``x0`` (B, 7), ``x_ref``/``x_lin``
-    (B, N, 7), ``u_lin`` (B, N, 2).  Returns (qp, const)."""
+def _linearise_dynamic(track, params: VehicleParams, mpc: MPCParams,
+                       x_lin, u_lin, stepper: str):
+    """The tick's shared first layer: the discrete linearisation
+    (Ad, Bd, dd), the cost weights q (nx,) and r_ab (nu,), the constraint
+    groups and the control bounds."""
     dtype, dev = x_lin.dtype, x_lin.device
     Bsz = x_lin.shape[0]
     f = lambda x, u: cm.f_curv_dyn_only(x, u, track, params)
@@ -170,8 +302,22 @@ def build_stage_qp_dynamic(x0, x_ref, track, params: VehicleParams,
     r_ab = _const([mpc.r_a, mpc.r_delta_d], dtype, dev)
     groups = _dynamic_groups(x_lin, u_lin, mpc, params)
     u_lb, u_ub = _control_bounds(mpc, Bsz, mpc.n_steps, dtype, dev)
-    r_soft = [mpc.w_track, mpc.w_slip, mpc.w_slip, mpc.w_tyre]
-    return build_stage_qp(x0, x_ref, q, r_ab, r_soft, groups, mpc,
+    return Ad, Bd, dd, q, r_ab, groups, u_lb, u_ub
+
+
+def _r_soft(mpc: MPCParams):
+    return [mpc.w_track, mpc.w_slip, mpc.w_slip, mpc.w_tyre]
+
+
+def build_stage_qp_dynamic(x0, x_ref, track, params: VehicleParams,
+                           mpc: MPCParams, x_lin, u_lin,
+                           stepper: str = "rk4"):
+    """Assemble a batch of dynamic-model LTV ticks as uncondensed
+    :class:`ops.riccati.StageQP`s.  ``x0`` (B, 7), ``x_ref``/``x_lin``
+    (B, N, 7), ``u_lin`` (B, N, 2).  Returns (qp, const)."""
+    Ad, Bd, dd, q, r_ab, groups, u_lb, u_ub = _linearise_dynamic(
+        track, params, mpc, x_lin, u_lin, stepper)
+    return build_stage_qp(x0, x_ref, q, r_ab, _r_soft(mpc), groups, mpc,
                           Ad, Bd, dd, u_lb, u_ub)
 
 
@@ -188,4 +334,64 @@ def ltv_mpc_dynamic_riccati(x0, x_ref, track, params: VehicleParams,
                                        x_lin, u_lin, stepper)
     res = riccati.solve_stage_qp(qp, opts, warm=warm)
     return LtvResult(u_opt=res.u, x_opt=res.x, slack=res.s,
+                     fval=res.objective + const, qp=res)
+
+
+def build_qp_dynamic(x0, x_ref, track, params: VehicleParams,
+                     mpc: MPCParams, x_lin, u_lin, stepper: str = "rk4",
+                     structured: bool = False, condense: str | None = None):
+    """Assemble a batch of dynamic-model LTV ticks as condensed QPs.
+
+    Returns ``((H, g, A, lb, ub, lbA, ubA, const), (Ad, Bd, dd))`` -- the
+    condensed QPs plus the discrete linearisation (needed to recover the
+    predicted states from the control solution).  The JAX package's
+    generator-factored rows (``structured="gen"``) are not ported; any
+    ``structured`` raises ``ValueError``.
+    """
+    if structured:
+        raise ValueError("structured constraint rows are not ported; use "
+                         "the dense default")
+    name = condense or DEFAULT_CONDENSE
+    if name == "dnc":
+        raise ValueError("condense='dnc' is not ported; use 'pallas' or "
+                         "'scan'")
+    N = mpc.n_steps
+    Ad, Bd, dd, q, r_ab, groups, u_lb, u_ub = _linearise_dynamic(
+        track, params, mpc, x_lin, u_lin, stepper)
+    A_bar, B_bar, d_bar = CONDENSERS[name](
+        Ad.contiguous(), Bd.contiguous(), dd.contiguous())
+    q_diag = torch.cat([q.repeat(N - 1), q * mpc.q_terminal_scale])
+    r_diag = r_ab.repeat(N)
+    qp = assemble_condensed_qp(A_bar, B_bar, d_bar, x0, x_ref, q_diag,
+                               r_diag, _r_soft(mpc), groups, u_lb, u_ub)
+    return qp, (Ad, Bd, dd)
+
+
+def ltv_mpc_dynamic(x0, x_ref, track, params: VehicleParams,
+                    mpc: MPCParams, x_lin, u_lin,
+                    opts: ipm.IpmOptions = ipm.IpmOptions(),
+                    stepper: str = "rk4", warm=None,
+                    structured: bool = False,
+                    condense: str | None = None,
+                    backend: str = "dense") -> LtvResult:
+    """A batch of dynamic-model LTV-MPC ticks.
+
+    ``backend="dense"``: the condensed QP on the dense IPM; ``warm`` is
+    the :class:`ops.ipm.IpmResult` of the previous tick.
+    ``backend="riccati"``: :func:`ltv_mpc_dynamic_riccati` (``warm`` a
+    :class:`ops.riccati.StageIpmResult`).  Both solve the same QP.
+    """
+    if backend == "riccati":
+        return ltv_mpc_dynamic_riccati(x0, x_ref, track, params, mpc,
+                                       x_lin, u_lin, opts, stepper, warm)
+    if backend != "dense":
+        raise ValueError(f"unknown backend={backend!r}")
+    N, nu = mpc.n_steps, 2
+    (H, g, A, lb, ub, lbA, ubA, const), (Ad, Bd, dd) = build_qp_dynamic(
+        x0, x_ref, track, params, mpc, x_lin, u_lin, stepper,
+        structured=structured, condense=condense)
+    res = ipm.solve_qp(H, g, A, lb, ub, lbA, ubA, opts, warm=warm)
+    u_opt = res.x[:, :N * nu].reshape(-1, N, nu)
+    x_opt = _rollout(Ad, Bd, dd, x0, u_opt)
+    return LtvResult(u_opt=u_opt, x_opt=x_opt, slack=res.x[:, N * nu:],
                      fval=res.objective + const, qp=res)

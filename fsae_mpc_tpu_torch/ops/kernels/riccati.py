@@ -24,8 +24,8 @@ JAX package's layouts (``apply`` takes right-hand sides as (B, K, N, n)):
     back from the card to the plain version.
 
 The kernels are built from ``csrc/riccati.cu`` with ``nvcc`` into a plain
-C-ABI shared library under ``fsae_mpc_tpu_torch/build/`` the first time a
-kernel is launched (never at import), and loaded with ``ctypes``.  Every
+C-ABI shared library the first time a kernel is launched (never at import;
+``build.py``), and loaded with ``ctypes``.  Every
 launch goes onto ``torch.cuda.current_stream()``; outputs are allocated
 here with ``torch.empty``.  ``KERNELS[name].launches`` counts the launches
 of each kernel.
@@ -34,21 +34,10 @@ of each kernel.
 from __future__ import annotations
 
 import ctypes
-import dataclasses
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
 
 import torch
 
-_PKG_DIR = os.path.dirname(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))))
-SOURCE = os.path.join(_PKG_DIR, "csrc", "riccati.cu")
-BUILD_DIR = os.path.join(_PKG_DIR, "build")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+from .build import Kernel, Library, check_tensors, empty, route
 
 SUPPORTED_NX = (5, 7, 9)
 SUPPORTED_NS = (1, 4)
@@ -222,18 +211,8 @@ def apply_ref(Huinv, G, W, Ad, Bd, M, rx, ru, re):
 
 
 # ---------------------------------------------------------------------------
-# the CUDA library: build at first use, bind with ctypes
+# the CUDA library: built at first launch (``build.py``), bound with ctypes
 # ---------------------------------------------------------------------------
-
-
-@dataclasses.dataclass
-class Kernel:
-    """One CUDA entry point and its launch count."""
-
-    name: str
-    symbol: str
-    replaces: str
-    launches: int = 0
 
 
 KERNELS = {
@@ -251,104 +230,24 @@ KERNELS = {
         "fsae_mpc_tpu/ops/pallas/riccati.py:140"),
 }
 
-
-def reset_launches() -> None:
-    for k in KERNELS.values():
-        k.launches = 0
-
-
-def launches() -> dict:
-    return {name: k.launches for name, k in KERNELS.items()}
-
-
-_LIB = None
-_LIB_LOCK = threading.Lock()
-
-
-def build_library() -> str:
-    """Compile ``csrc/riccati.cu`` (if its build is missing) and return the
-    path of the shared library.  The file name carries a hash of the source
-    and the flags, so an edit rebuilds.  ``nvcc``'s ``-Xptxas -v`` report
-    (registers, spills) is kept beside it as ``.log``."""
-    with open(SOURCE, "rb") as f:
-        digest = hashlib.sha256(
-            f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = os.path.join(BUILD_DIR, f"libriccati_{digest}.so")
-    if os.path.exists(out):
-        return out
-    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(nvcc):
-        raise RuntimeError("nvcc not found: the CUDA kernels are built on a "
-                           "machine with the CUDA toolkit")
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = out + f".tmp{os.getpid()}"
-    proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, SOURCE],
-                          capture_output=True, text=True)
-    with open(out[:-3] + ".log", "w") as f:
-        f.write(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stderr[-4000:]}")
-    os.replace(tmp, out)
-    return out
-
-
-def _library():
-    global _LIB
-    with _LIB_LOCK:
-        if _LIB is None:
-            lib = ctypes.CDLL(build_library())
-            P, I = ctypes.c_void_p, ctypes.c_int
-            sigs = {
-                "riccati_factor_f32": [P] * 8 + [I] * 3 + [P],
-                "riccati_assemble_factor_f32": [P] * 15 + [I] * 5 + [P],
-                "riccati_apply_bwd_f32": [P] * 11 + [I] * 4 + [P],
-                "riccati_apply_fwd_f32": [P] * 12 + [I] * 4 + [P],
-            }
-            for sym, argtypes in sigs.items():
-                fn = getattr(lib, sym)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
-            _LIB = lib
-    return _LIB
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_LIB = Library("riccati.cu", {
+    "riccati_factor_f32": [_P] * 8 + [_I] * 3 + [_P],
+    "riccati_assemble_factor_f32": [_P] * 15 + [_I] * 5 + [_P],
+    "riccati_apply_bwd_f32": [_P] * 11 + [_I] * 4 + [_P],
+    "riccati_apply_fwd_f32": [_P] * 12 + [_I] * 4 + [_P],
+})
 
 
 def _check(tensors: dict, shapes: dict, nx: int, ns: int | None = None):
     """Validate what the kernels accept; raise on anything else."""
-    dev = next(iter(tensors.values())).device
-    for name, t in tensors.items():
-        if t.device != dev or t.device.type != "cuda":
-            raise ValueError(f"{name}: expected a CUDA tensor on {dev}, got "
-                             f"{t.device}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name}: the kernels take float32, got "
-                            f"{t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name}: must be contiguous")
-        if tuple(t.shape) != shapes[name]:
-            raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
-                             f"{shapes[name]}")
+    check_tensors(tensors, shapes)
     if nx not in SUPPORTED_NX:
         raise ValueError(f"nx={nx} unsupported by the kernels "
                          f"(supported: {SUPPORTED_NX})")
     if ns is not None and ns not in SUPPORTED_NS:
         raise ValueError(f"ns={ns} unsupported by the kernels "
                          f"(supported: {SUPPORTED_NS})")
-
-
-def _launch(kernel: Kernel, *args):
-    fn = getattr(_library(), kernel.symbol)
-    stream = torch.cuda.current_stream().cuda_stream
-    conv = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
-    err = fn(*conv, stream)
-    if err != 0:
-        raise RuntimeError(f"CUDA kernel {kernel.name} failed to launch: "
-                           f"cudaError {err}")
-    kernel.launches += 1
-
-
-def _empty(like, *shape):
-    return torch.empty(shape, dtype=like.dtype, device=like.device)
 
 
 def _nu_check(nu):
@@ -363,9 +262,10 @@ def factor_cuda(Ad, Bd, Qb, Rb, M):
            dict(Ad=(Bsz, N, nx, nx), Bd=(Bsz, N, nx, nu),
                 Qb=(Bsz, N, nx, nx), Rb=(Bsz, N, nu, nu),
                 M=(Bsz, N, nx, nu)), nx)
-    Huinv, G, W = (_empty(Ad, Bsz, N, nu, nu), _empty(Ad, Bsz, N, nu, nx),
-                   _empty(Ad, Bsz, N, nx, nx))
-    _launch(KERNELS["factor"], Ad, Bd, Qb, Rb, M, Huinv, G, W, Bsz, N, nx)
+    Huinv, G, W = (empty(Ad, Bsz, N, nu, nu), empty(Ad, Bsz, N, nu, nx),
+                   empty(Ad, Bsz, N, nx, nx))
+    _LIB.launch(KERNELS["factor"], Ad, Bd, Qb, Rb, M, Huinv, G, W, Bsz, N,
+                nx)
     return Huinv, G, W
 
 
@@ -378,12 +278,12 @@ def assemble_factor_cuda(C, D, Ws, Dr, qb_diag, rb_diag, Ad, Bd):
            dict(C=(Bsz, N, r, nx), D=(Bsz, N, r, nu), Ws=(Bsz, N, r, ns),
                 Dr=(Bsz, N, r), qb_diag=(Bsz, N, nx), rb_diag=(Bsz, N, nu),
                 Ad=(Bsz, N, nx, nx), Bd=(Bsz, N, nx, nu)), nx, ns)
-    outs = (_empty(C, Bsz, N, nu, nu), _empty(C, Bsz, N, nu, nx),
-            _empty(C, Bsz, N, nx, nx), _empty(C, Bsz, N, nx, nu),
-            _empty(C, Bsz, N, nx, ns), _empty(C, Bsz, N, nu, ns),
-            _empty(C, Bsz, N, ns, ns))
-    _launch(KERNELS["assemble_factor"], C, D, Ws, Dr, qb_diag, rb_diag, Ad,
-            Bd, *outs, Bsz, N, r, nx, ns)
+    outs = (empty(C, Bsz, N, nu, nu), empty(C, Bsz, N, nu, nx),
+            empty(C, Bsz, N, nx, nx), empty(C, Bsz, N, nx, nu),
+            empty(C, Bsz, N, nx, ns), empty(C, Bsz, N, nu, ns),
+            empty(C, Bsz, N, ns, ns))
+    _LIB.launch(KERNELS["assemble_factor"], C, D, Ws, Dr, qb_diag, rb_diag,
+                Ad, Bd, *outs, Bsz, N, r, nx, ns)
     return outs
 
 
@@ -404,19 +304,19 @@ def _apply_shapes(Huinv, G, W, Ad, Bd, M, **rhs):
 def apply_bwd_cuda(Huinv, G, W, Ad, Bd, M, rx, ru, re):
     Bsz, K, N, nx, nu = _apply_shapes(Huinv, G, W, Ad, Bd, M, rx=rx, ru=ru,
                                       re=re)
-    h, w = _empty(rx, Bsz, K, N, nu), _empty(rx, Bsz, K, N, nx)
-    _launch(KERNELS["apply_bwd"], Huinv, G, W, Ad, Bd, M, rx, ru, re, h, w,
-            Bsz, K, N, nx)
+    h, w = empty(rx, Bsz, K, N, nu), empty(rx, Bsz, K, N, nx)
+    _LIB.launch(KERNELS["apply_bwd"], Huinv, G, W, Ad, Bd, M, rx, ru, re, h,
+                w, Bsz, K, N, nx)
     return h, w
 
 
 def apply_fwd_cuda(Huinv, G, W, Ad, Bd, M, re, h, w):
     Bsz, K, N, nx, nu = _apply_shapes(Huinv, G, W, Ad, Bd, M, re=re, h=h,
                                       w=w)
-    du, dx, dlam = (_empty(re, Bsz, K, N, nu), _empty(re, Bsz, K, N, nx),
-                    _empty(re, Bsz, K, N, nx))
-    _launch(KERNELS["apply_fwd"], Huinv, G, W, Ad, Bd, M, re, h, w, du, dx,
-            dlam, Bsz, K, N, nx)
+    du, dx, dlam = (empty(re, Bsz, K, N, nu), empty(re, Bsz, K, N, nx),
+                    empty(re, Bsz, K, N, nx))
+    _LIB.launch(KERNELS["apply_fwd"], Huinv, G, W, Ad, Bd, M, re, h, w, du,
+                dx, dlam, Bsz, K, N, nx)
     return du, dx, dlam
 
 
@@ -430,27 +330,19 @@ def apply_cuda(Huinv, G, W, Ad, Bd, M, rx, ru, re):
 # ---------------------------------------------------------------------------
 
 
-def _route(t: torch.Tensor) -> str:
-    if t.device.type == "cpu":
-        return "ref"
-    if t.device.type == "cuda":
-        return "cuda"
-    raise ValueError(f"no Riccati kernel for device {t.device}")
-
-
 def factor(Ad, Bd, Qb, Rb, M):
-    if _route(Ad) == "ref":
+    if route(Ad, "Riccati") == "ref":
         return factor_ref(Ad, Bd, Qb, Rb, M)
     return factor_cuda(Ad, Bd, Qb, Rb, M)
 
 
 def assemble_factor(C, D, Ws, Dr, qb_diag, rb_diag, Ad, Bd):
-    if _route(C) == "ref":
+    if route(C, "Riccati") == "ref":
         return assemble_factor_ref(C, D, Ws, Dr, qb_diag, rb_diag, Ad, Bd)
     return assemble_factor_cuda(C, D, Ws, Dr, qb_diag, rb_diag, Ad, Bd)
 
 
 def apply(Huinv, G, W, Ad, Bd, M, rx, ru, re):
-    if _route(rx) == "ref":
+    if route(rx, "Riccati") == "ref":
         return apply_ref(Huinv, G, W, Ad, Bd, M, rx, ru, re)
     return apply_cuda(Huinv, G, W, Ad, Bd, M, rx, ru, re)

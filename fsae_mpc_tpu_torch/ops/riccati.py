@@ -28,7 +28,9 @@ import dataclasses
 
 import torch
 
-from .ipm import IpmOptions, _pow2
+from .condense import rollout
+from .ipm import (D_CAP_F32, D_CAP_F64, IpmOptions, _all_finite, _amax,
+                  _amin, _bc, _bsum, _leaves, _pow2, _side, _where)
 from .kernels import riccati as kriccati
 from .kernels.riccati import _cho_solve_small, _chol_small
 from .precision import fma_add, residual_affine
@@ -85,51 +87,6 @@ class StageIpmResult:
 
 
 # ---------------------------------------------------------------------------
-# per-instance reductions and selections
-# ---------------------------------------------------------------------------
-
-
-def _flat(x):
-    return x.reshape(x.shape[0], -1)
-
-
-def _amax(x):
-    return _flat(x).amax(1)
-
-
-def _amin(x, empty=float("inf")):
-    if x[0].numel() == 0:
-        return torch.full(x.shape[:1], empty, dtype=x.dtype, device=x.device)
-    return _flat(x).amin(1)
-
-
-def _bsum(x):
-    return _flat(x).sum(1)
-
-
-def _all_finite(x):
-    return torch.isfinite(_flat(x)).all(1)
-
-
-def _bc(v, ref):
-    """Reshape a per-instance (B,) tensor to broadcast against ``ref``."""
-    return v.reshape(v.shape + (1,) * (ref.ndim - v.ndim))
-
-
-def _where(cond, a, b):
-    """Per-instance select over (nested tuples of) batch-first tensors."""
-    if isinstance(a, tuple):
-        return tuple(_where(cond, x, y) for x, y in zip(a, b))
-    return torch.where(_bc(cond, a), a, b)
-
-
-def _leaves(tree):
-    if isinstance(tree, tuple):
-        return [leaf for t in tree for leaf in _leaves(t)]
-    return [tree]
-
-
-# ---------------------------------------------------------------------------
 # Riccati factor / apply (dispatch to the kernels or their plain versions)
 # ---------------------------------------------------------------------------
 
@@ -154,25 +111,22 @@ def assemble_factor(C, D, Ws, D_r, qb_diag, rb_diag, Ad, Bd):
 # the solver
 # ---------------------------------------------------------------------------
 
-# Complementarity-diagonal caps, equal to the dense solver's.
-D_CAP_F64 = 1e14
-D_CAP_F32 = 1e7
+# IpmOptions fields with no stage-wise analogue: they compensate for the
+# condensed Hessian's conditioning, which the stage-wise KKT system never
+# forms.  Setting any of them non-default here is a configuration error.
+_UNSUPPORTED_STAGE_OPTS = ("polish", "scale_kkt", "comp_resid",
+                           "correctors", "var_scale")
 
 
-def _mask_side(val):
-    finite = torch.isfinite(val)
-    return finite, torch.where(finite, val, 0.0)
-
-
-def _rollout_scan(Ad, Bd, dd, x0, u):
-    """x_{k+1} = Ad_k x_k + Bd_k u_k + dd_k rollout -> (B, N, nx)."""
-    xs = []
-    xk = x0
-    for k in range(Ad.shape[1]):
-        xk = (torch.einsum("bij,bj->bi", Ad[:, k], xk)
-              + torch.einsum("bik,bk->bi", Bd[:, k], u[:, k]) + dd[:, k])
-        xs.append(xk)
-    return torch.stack(xs, 1)
+def _check_stage_opts(opts: IpmOptions) -> None:
+    defaults = IpmOptions()
+    bad = [f for f in _UNSUPPORTED_STAGE_OPTS
+           if getattr(opts, f) != getattr(defaults, f)]
+    if bad:
+        raise ValueError(
+            f"IpmOptions fields {bad} are condensed-only and have no "
+            "effect in the stage-wise Riccati solver; clear them (the "
+            "supported accuracy refinement here is refine_restart)")
 
 
 def _delta_stage_qp(qp: StageQP, res: StageIpmResult) -> StageQP:
@@ -214,12 +168,15 @@ def solve_stage_qp(qp: StageQP, opts: IpmOptions = IpmOptions(),
                    warm: StageIpmResult | None = None) -> StageIpmResult:
     """Solve a batch of stage-wise QPs.
 
-    Reads every field of :class:`ops.ipm.IpmOptions`; ``refine_restart``
-    adds delta-form re-solves about the incumbent.  The soft-slack variables
-    are rescaled by a power of two per instance so the slack gradient no
-    longer sets the global objective scale; results are reported in
-    original units except the residuals.
+    Reads the stage-wise fields of :class:`ops.ipm.IpmOptions`;
+    ``refine_restart`` adds delta-form re-solves about the incumbent.  The
+    soft-slack variables are rescaled by a power of two per instance so
+    the slack gradient no longer sets the global objective scale; results
+    are reported in original units except the residuals.  The
+    condensed-only fields (``polish``, ``scale_kkt``, ``comp_resid``,
+    ``correctors``, ``var_scale``) raise ``ValueError`` when set.
     """
+    _check_stage_opts(opts)
     ns = qp.g_s.shape[-1]
     if ns:
         gx = torch.maximum(
@@ -352,12 +309,12 @@ def _solve_stage_core(qp: StageQP, opts: IpmOptions = IpmOptions(),
     ubA = qp.ubA * r_scale
 
     # ---- masks -------------------------------------------------------------
-    mrl, lbA_s = _mask_side(lbA)
-    mru, ubA_s = _mask_side(ubA)
-    mul, u_lb = _mask_side(qp.u_lb)
-    muu, u_ub = _mask_side(qp.u_ub)
-    msl, s_lb = _mask_side(qp.s_lb)
-    msu, s_ub = _mask_side(qp.s_ub)
+    mrl, lbA_s = _side(lbA)
+    mru, ubA_s = _side(ubA)
+    mul, u_lb = _side(qp.u_lb)
+    muu, u_ub = _side(qp.u_ub)
+    msl, s_lb = _side(qp.s_lb)
+    msu, s_ub = _side(qp.s_ub)
     masks = (mrl, mru, mul, muu, msl, msu)
     n_active = sum(_bsum(m.to(torch.int64)) for m in masks)
     n_active = torch.clamp_min(n_active, 1).to(dtype)              # (B,)
@@ -534,19 +491,19 @@ def _solve_stage_core(qp: StageQP, opts: IpmOptions = IpmOptions(),
         ok = _all_finite(u0_) & _all_finite(x0_)
         u0_ = torch.where(_bc(ok, u0_), u0_, 0.0)
         u0_ = clip_u(u0_)
-        x0_ = _rollout_scan(Ad, Bd, dd, x0, u0_)
+        x0_ = rollout(Ad, Bd, dd, x0, u0_)
         s0_ = torch.zeros((Bsz, ns), dtype=dtype, device=dev)
         mu0 = opts.mu0
     elif warm is not None:
         # warm primal: controls + slacks carry over, the states are
         # re-rolled under this tick's dynamics
         u0_ = clip_u(warm.u)
-        x0_ = _rollout_scan(Ad, Bd, dd, x0, u0_)
+        x0_ = rollout(Ad, Bd, dd, x0, u0_)
         s0_ = warm.s
         mu0 = opts.warm_mu0
     else:
         u0_ = torch.zeros((Bsz, N, nu), dtype=dtype, device=dev)
-        x0_ = _rollout_scan(Ad, Bd, dd, x0, u0_)
+        x0_ = rollout(Ad, Bd, dd, x0, u0_)
         s0_ = torch.zeros((Bsz, ns), dtype=dtype, device=dev)
         mu0 = opts.mu0
     s_init0 = s0_

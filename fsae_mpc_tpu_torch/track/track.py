@@ -2,7 +2,8 @@
 
 Port of ``fsae_mpc_tpu.track.track``: the spline coefficients of the host
 f64 fit as tensors on one device in one dtype, with the curvature lookup
-the dynamics need.
+the dynamics need.  ``track_from_points`` and ``load_track`` put them on
+the CUDA device unless the caller asks for another (``device="cpu"``).
 """
 
 from __future__ import annotations
@@ -37,7 +38,7 @@ class Track:
 
 def track_from_points(x: np.ndarray, y: np.ndarray, n_segments: int = 100,
                       periodic: bool = True, dtype=torch.float32,
-                      device=None) -> Track:
+                      device="cuda") -> Track:
     """Fit + arclength-reparametrise a track through centreline points."""
     x_P = sp.make_spline_periodic(x) if periodic else sp.make_spline(x)
     y_P = sp.make_spline_periodic(y) if periodic else sp.make_spline(y)
@@ -47,7 +48,7 @@ def track_from_points(x: np.ndarray, y: np.ndarray, n_segments: int = 100,
 
 
 def load_track(csv_path: str, n_segments: int = 100, dtype=torch.float32,
-               device=None):
+               device="cuda"):
     """Load a raceline CSV and build the ``Track``.  Returns
     ``(track, raceline_dict)``."""
     cols = read_raceline_csv(csv_path)

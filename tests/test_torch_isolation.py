@@ -1,14 +1,20 @@
 """What must stay apart in the PyTorch port, and what crosses over.
 
-  * instances of a batch: a NaN-poisoned Riccati pivot stays in its
-    instance, and a batched tick equals one-instance ticks (every
-    reduction and selection of the solver is per instance);
+  * instances of a batch: a NaN-poisoned Riccati pivot or dense Cholesky
+    pivot stays in its instance, and a batched tick equals one-instance
+    ticks on both backends (every reduction and selection of the solvers
+    is per instance);
   * the card and the plain versions: a kernel wrapper refuses what its
-    CUDA kernel cannot run instead of falling back;
-  * the two packages: the port imports no JAX, and ``interop`` carries the
-    JAX package's parameters and ``StageQP`` across unchanged.
+    CUDA kernel cannot run instead of falling back, and a solver refuses
+    options it has no counterpart for;
+  * the two packages: the port imports no JAX; ``interop`` carries the
+    JAX package's parameters, presets, ``StageQP`` and ``IpmResult``
+    across unchanged; the port's entry points put their tensors on the
+    CUDA device unless the caller asks for the CPU.
 
-All on the CPU in f64; nothing here compiles a JAX function.
+All on the CPU in f64; nothing here compiles a JAX function.  The file
+keeps six tests: xdist's ``--dist loadfile`` queues files by test count,
+and a seventh would move it ahead of the suite's longest file.
 """
 
 import dataclasses
@@ -22,12 +28,15 @@ import pytest
 import torch
 
 from fsae_mpc_tpu import config as jconfig
+from fsae_mpc_tpu.ops import ipm as jipm
 from fsae_mpc_tpu.ops import riccati as jriccati
 
 from fsae_mpc_tpu_torch import interop
 from fsae_mpc_tpu_torch.config import MPC_F32, VehicleParams
 from fsae_mpc_tpu_torch.mpc import ltv
-from fsae_mpc_tpu_torch.ops import ipm
+from fsae_mpc_tpu_torch.ops import ipm, riccati
+from fsae_mpc_tpu_torch.ops.kernels import chol as kchol
+from fsae_mpc_tpu_torch.ops.kernels import condense as kcondense
 from fsae_mpc_tpu_torch.ops.kernels import riccati as kr
 from fsae_mpc_tpu_torch.track import load_track
 
@@ -60,15 +69,29 @@ def test_nan_poison_stays_in_its_instance():
     for o, c in zip((huinv, G, W), clean):
         torch.testing.assert_close(o[[0, 2]], c[[0, 2]], rtol=0, atol=0)
         torch.testing.assert_close(o[1, 4:], c[1, 4:], rtol=0, atol=0)
+    # the dense Cholesky factor: an indefinite KKT matrix poisons its own
+    # instance only, and the solve carries the NaN to that instance's step
+    K = torch.einsum("bij,bkj->bik", Qb[:, 0], Qb[:, 0]) + torch.eye(NX)
+    K_bad = K.clone()
+    K_bad[1] -= 1e3 * torch.eye(NX, dtype=F64)
+    L, L_bad = kchol.factor(K), kchol.factor(K_bad)
+    rhs = torch.ones((B, NX), dtype=F64)
+    x_bad = kchol.solve(L_bad, rhs)
+    assert torch.isnan(L_bad[1]).all() and torch.isnan(x_bad[1]).all()
+    torch.testing.assert_close(L_bad[[0, 2]], L[[0, 2]], rtol=0, atol=0)
+    torch.testing.assert_close(x_bad[[0, 2]], kchol.solve(L, rhs)[[0, 2]],
+                               rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("preset", ["F32_OPTS", "F32_PRODUCTION"])
 def test_batched_solve_equals_single_solves(preset):
     """Per-instance reductions must not leak across the batch: a batched
-    tick equals B one-instance ticks (to summation-order roundoff)."""
+    tick equals B one-instance ticks (to summation-order roundoff), on
+    the Riccati and on the dense backend."""
     n = 8
     mpc = dataclasses.replace(MPC_F32, n_steps=n)
-    track, _ = load_track("data/fsg2019.csv", dtype=F64)
+    track, _ = load_track("data/fsg2019.csv", dtype=F64,
+                          device="cpu")
     params = VehicleParams()
     t = mpc.dt * torch.arange(1, n + 1, dtype=F64)
     x0 = torch.zeros((B, 7), dtype=F64)
@@ -85,18 +108,19 @@ def test_batched_solve_equals_single_solves(preset):
     u_lin = torch.zeros((B, n, 2), dtype=F64)
     opts = getattr(ipm, preset)
     args = (x0, x_ref, x_lin, u_lin)
-    batched = ltv.ltv_mpc_dynamic_riccati(x0, x_ref, track, params, mpc,
-                                          x_lin, u_lin, opts)
-    for b in range(B):
-        a = [v[b:b + 1] for v in args]
-        one = ltv.ltv_mpc_dynamic_riccati(a[0], a[1], track, params, mpc,
-                                          a[2], a[3], opts)
-        np.testing.assert_allclose(one.u_opt.numpy()[0],
-                                   batched.u_opt.numpy()[b], rtol=0,
-                                   atol=1e-9)
-        np.testing.assert_allclose(one.slack.numpy()[0],
-                                   batched.slack.numpy()[b], rtol=0,
-                                   atol=1e-9)
+    for backend in ("riccati", "dense"):
+        batched = ltv.ltv_mpc_dynamic(x0, x_ref, track, params, mpc, x_lin,
+                                      u_lin, opts, backend=backend)
+        for b in range(B):
+            a = [v[b:b + 1] for v in args]
+            one = ltv.ltv_mpc_dynamic(a[0], a[1], track, params, mpc, a[2],
+                                      a[3], opts, backend=backend)
+            np.testing.assert_allclose(one.u_opt.numpy()[0],
+                                       batched.u_opt.numpy()[b], rtol=0,
+                                       atol=1e-9, err_msg=backend)
+            np.testing.assert_allclose(one.slack.numpy()[0],
+                                       batched.slack.numpy()[b], rtol=0,
+                                       atol=1e-9, err_msg=backend)
 
 
 def test_kernel_wrappers_refuse_what_they_cannot_run():
@@ -109,6 +133,32 @@ def test_kernel_wrappers_refuse_what_they_cannot_run():
         kr.apply_cuda(*[torch.zeros(B, N, 3, 3)] * 4,
                       torch.zeros(B, N, 3, 3), torch.zeros(B, N, 3, 3),
                       *[torch.zeros(B, 1, N, 3)] * 3)
+    Ad, Bd = fac[0], fac[1]
+    dd = torch.zeros((B, N, NX), dtype=F64)
+    with pytest.raises(ValueError, match="no condense kernel"):
+        kcondense.condense(Ad.to("meta"), Bd.to("meta"), dd.to("meta"))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        kcondense.condense_cuda(Ad, Bd, dd)
+    K = torch.eye(NX, dtype=F64).repeat(B, 1, 1)
+    with pytest.raises(ValueError, match="no Cholesky kernel"):
+        kchol.factor(K.to("meta"))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        kchol.factor_cuda(K)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        kchol.solve_cuda(K, K[:, 0])
+    # the solvers: the TPU-only Cholesky route has no counterpart, and the
+    # stage-wise solver rejects the condensed-only options (as the JAX
+    # package's _check_stage_opts does) instead of ignoring them
+    qp = [K, K[:, 0], K, -K[:, 0], K[:, 0], -K[:, 0], K[:, 0]]
+    with pytest.raises(ValueError, match="blocked"):
+        ipm.solve_qp(*qp, ipm.IpmOptions(chol="blocked"))
+    for field, value in (("polish", 1), ("scale_kkt", True),
+                         ("comp_resid", True), ("correctors", 1),
+                         ("var_scale", True)):
+        with pytest.raises(ValueError, match="condensed-only"):
+            riccati.solve_stage_qp(
+                None, dataclasses.replace(ipm.IpmOptions(),
+                                          **{field: value}))
 
 
 def test_port_never_imports_jax():
@@ -125,12 +175,32 @@ def test_port_never_imports_jax():
 
 
 def test_interop_carries_params_and_stage_qp():
-    """The JAX package's parameters and a (batched) StageQP, as numpy, come
-    across unchanged: every field, in the port's batch-first layout."""
+    """The JAX package's parameters, IPM presets, a (batched) StageQP and
+    an IpmResult, as numpy, come across unchanged: every field, in the
+    port's batch-first layout.  Without ``device`` they go to the CUDA
+    device, so a call that does not ask for the CPU fails where there is
+    no card."""
     vp = interop.vehicle_params(dataclasses.asdict(jconfig.VehicleParams()))
     assert vp == VehicleParams()
     mp = interop.mpc_params(dataclasses.asdict(jconfig.MPC_F32))
     assert mp == MPC_F32
+    for name in ("F32_OPTS", "F32_ACCURATE", "F32_BALANCED",
+                 "F32_PRODUCTION"):
+        assert (dataclasses.asdict(getattr(ipm, name))
+                == dataclasses.asdict(getattr(jipm, name))), name
+    assert (dataclasses.asdict(ipm.IpmOptions())
+            == dataclasses.asdict(jipm.IpmOptions()))
+    res = {f.name: np.arange(B * 3.0).reshape(B, 3)
+           for f in dataclasses.fields(jipm.IpmResult)}
+    res["iterations"] = np.array([12, 7, 30], np.int32)
+    back = interop.to_numpy(interop.ipm_result(res, device="cpu"))
+    for name, v in res.items():
+        np.testing.assert_array_equal(back[name], v)
+    if not torch.cuda.is_available():
+        with pytest.raises((AssertionError, RuntimeError)):
+            load_track("data/fsg2019.csv")
+        with pytest.raises((AssertionError, RuntimeError)):
+            interop.ipm_result(res)
     rng = np.random.default_rng(0)
     r, ns = 20, 4
     shapes = dict(Ad=(N, NX, NX), Bd=(N, NX, NU), dd=(N, NX), x0=(NX,),
@@ -143,7 +213,7 @@ def test_interop_carries_params_and_stage_qp():
         for f in dataclasses.fields(jriccati.StageQP)})
     src = {f.name: np.asarray(getattr(jqp, f.name))
            for f in dataclasses.fields(jqp)}
-    qp = interop.stage_qp(src)
+    qp = interop.stage_qp(src, device="cpu")
     back = interop.to_numpy(qp)
     assert back.keys() == src.keys()
     for name, v in src.items():

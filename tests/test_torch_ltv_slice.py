@@ -133,7 +133,7 @@ def jax_results():
 def port_setup():
     from fsae_mpc_tpu_torch.track import load_track
     mpc = dataclasses.replace(MPC_F32, n_steps=N)
-    track, _ = load_track("data/fsg2019.csv", dtype=F64)
+    track, _ = load_track("data/fsg2019.csv", dtype=F64, device="cpu")
     return mpc, track, VehicleParams()
 
 
@@ -158,7 +158,8 @@ def test_tick_matches_jax(case, jax_results, port_setup):
     mpc, track, params = port_setup
     x0, x_ref, x_lin, u_lin, x0_w = jax_results["inputs"]
     if case == "warm":
-        warm = interop.stage_ipm_result(jax_results["cold"]["qp"], dtype=F64)
+        warm = interop.stage_ipm_result(jax_results["cold"]["qp"],
+                                         dtype=F64, device="cpu")
         res = ltv.ltv_mpc_dynamic_riccati(
             _t(x0_w), _t(x_ref), track, params, mpc, _t(x_lin), _t(u_lin),
             ipm.F32_OPTS, warm=warm)

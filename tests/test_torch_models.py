@@ -104,7 +104,7 @@ def ref():
 @pytest.fixture(scope="module")
 def port():
     mpc = dataclasses.replace(MPC_F32, n_steps=N)
-    track, _ = load_track("data/fsg2019.csv", dtype=F64)
+    track, _ = load_track("data/fsg2019.csv", dtype=F64, device="cpu")
     return mpc, track, VehicleParams()
 
 
@@ -127,7 +127,7 @@ def test_spline_fit_and_curvature(ref, port):
     _close(track.curvature(_t(s_query)).numpy(), ref["out"]["kappa"])
     # the interop route gives the same track
     t2 = interop.track(np.asarray(tj.px), np.asarray(tj.py),
-                       np.asarray(tj.dl), np.asarray(tj.L))
+                       np.asarray(tj.dl), np.asarray(tj.L), device="cpu")
     _close(t2.curvature(_t(s_query)).numpy(), ref["out"]["kappa"])
 
 
