@@ -8,8 +8,10 @@ Run from the root of a checkout, on a machine with one CUDA card:
 Phases (any failure exits non-zero before the result lines):
 
   1. build    -- compile ``fsae_mpc_tpu_torch/csrc/{riccati,condense,
-                 chol}.cu`` with nvcc, one process per source, all started
-                 together, into ``fsae_mpc_tpu_torch/build/``.
+                 chol}.cu`` with nvcc, and ``riccati.cu`` once more for
+                 each planted fault (``-DRICCATI_PLANT=n``), one process
+                 per library, all started together, into
+                 ``fsae_mpc_tpu_torch/build/``.
   2. kernels  -- each of the seven kernels against its plain PyTorch
                  version on the same CUDA tensors, in f32:
                  the four Riccati kernels at the Riccati path's shapes
@@ -21,10 +23,16 @@ Phases (any failure exits non-zero before the result lines):
                  whose diagonal spans the IPM's range (up to its f32
                  complementarity cap, 1e7), normwise and entry by entry
                  (componentwise backward error, which planted faults
-                 must fail).  One indefinite instance among
-                 37 must come out NaN with its neighbours finite (Riccati
-                 2x2 pivot; dense KKT matrix).  Kernel, plain and library
-                 times (CUDA events) and each kernel's bound.
+                 must fail).  assemble_factor and apply_fwd also per
+                 instance and output block, and their planted faults (a
+                 row dropped, a chunk staged one stage late, the dx carry
+                 not advanced, two rhs swapped) must fail those checks.
+                 One indefinite instance among 37 must come out NaN with
+                 its neighbours finite (Riccati 2x2 pivot; dense KKT
+                 matrix); so must one instance whose Huinv holds a NaN
+                 in apply_fwd.  Kernel times (CUDA events around a CUDA
+                 graph of 20 launches, so host gaps do not count), plain
+                 and library times, and each kernel's bound.
   3. main paths, each driven with every launch count set to 0 just
                  before it and read just after:
                  (a) ``ltv_mpc_dynamic(backend="riccati")`` and
@@ -88,6 +96,12 @@ REC_BATCH, REC_TICKS = 32, 3
 # bars on a share of instances; this guard (10x the bars) catches a port
 # that has gone wrong, not the solver's f32 floor.
 ACC_GUARD = {"F32_PRODUCTION": (1e-1, 1e-2)}
+# the faults compiled into riccati.cu under -DRICCATI_PLANT=n, each of
+# which the assemble_factor (1, 2) or apply_fwd (3, 4) checks must fail
+PLANTS = {1: "assemble_factor drops row 3 of stage 17",
+          2: "assemble_factor stages its second chunk one stage late",
+          3: "apply_fwd does not advance the dx carry at stage 17",
+          4: "apply_fwd swaps rhs 0 and 1 of instance 5"}
 
 
 def log(msg: str) -> None:
@@ -118,6 +132,33 @@ def check(cond: bool, msg: str) -> None:
 # ---------------------------------------------------------------------------
 # timing
 # ---------------------------------------------------------------------------
+
+
+def graph_ms(fn, reps: int = 20, replays: int = 5) -> float:
+    """Device time of one call of ``fn``: ``reps`` calls captured in a
+    CUDA graph, replayed ``replays`` times between CUDA events, so the
+    host's time per call (wrapper, ctypes) leaves no gaps on the card."""
+    import torch
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (reps * replays)
 
 
 def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -178,7 +219,23 @@ def abs_err(a, b) -> float:
     return float(torch.max(torch.abs(a - b)))
 
 
-def compare(name, outs, refs, results, tag):
+def inst_err(outs, refs) -> float:
+    """The largest error of any instance in any output block, relative to
+    that instance's own largest entry of the block (inf if non-finite):
+    a fault confined to one instance or one block cannot hide behind the
+    batch's scale."""
+    import torch
+    worst = 0.0
+    for o, r in zip(outs, refs):
+        if not bool(torch.isfinite(o).all()):
+            return float("inf")
+        d = (o - r).abs().flatten(1).amax(1)
+        n = r.abs().flatten(1).amax(1).clamp_min(1e-30)
+        worst = max(worst, float((d / n).max()))
+    return worst
+
+
+def compare(name, outs, refs, results, tag, per_instance=False):
     import torch
     for o, r in zip(outs, refs):
         check(torch.isfinite(o).all().item(), f"{name} [{tag}]: non-finite")
@@ -191,6 +248,39 @@ def compare(name, outs, refs, results, tag):
     res = results.setdefault(name, {"max_abs_err": 0.0, "max_rel_err": 0.0})
     res["max_abs_err"] = max(res["max_abs_err"], ab)
     res["max_rel_err"] = max(res["max_rel_err"], rel)
+    if per_instance:
+        pi = inst_err(outs, refs)
+        log(f"kernel {name:16s} [{tag}] per instance and block max rel err "
+            f"{pi:.3e} (tol {KERNEL_RTOL:.0e})")
+        check(pi <= KERNEL_RTOL, f"{name} [{tag}]: per-instance rel err "
+              f"{pi:.3e} > {KERNEL_RTOL:.0e}")
+
+
+def planted_faults(plants, asm, fwd, dims, tag):
+    """Launch each planted-fault build of assemble_factor and apply_fwd on
+    the case's inputs; each must fail the per-instance check against the
+    plain outputs.  ``asm``/``fwd``: (inputs, plain
+    outputs).  These launches count on no kernel's launch count."""
+    import torch
+    from fsae_mpc_tpu_torch.ops.kernels.build import Kernel
+    Bsz, N, r, nx, ns, K = dims
+    errs = {}
+    for n, lib in plants.items():
+        if n == 4 and K < 2:
+            continue                       # one rhs: nothing to swap
+        ins, refs = asm if n in (1, 2) else fwd
+        sym = ("riccati_assemble_factor_f32" if n in (1, 2)
+               else "riccati_apply_fwd_f32")
+        ints = (Bsz, N, r, nx, ns) if n in (1, 2) else (Bsz, K, N, nx)
+        outs = tuple(torch.empty_like(t) for t in refs)
+        lib.launch(Kernel(f"planted {n}", sym, ""), *ins, *outs, *ints)
+        torch.cuda.synchronize()
+        errs[n] = inst_err(outs, refs)    # >= the normwise error
+    log(f"kernel {'riccati planted':16s} [{tag}] " + ", ".join(
+        f"{n} ({PLANTS[n]}): {e:.3e}" for n, e in errs.items()))
+    passed = [n for n, e in errs.items() if not e > KERNEL_RTOL]
+    check(not passed, f"riccati [{tag}]: planted faults {passed} pass the "
+          "checks")
 
 
 def nbytes(*tensors) -> int:
@@ -220,7 +310,7 @@ def riccati_ops(name, B, N, nx, nu, r, ns, K):
     return B * N * per
 
 
-def kernel_phase(kr, device, card):
+def kernel_phase(kr, device, card, plants):
     import torch
     results = {}
     # the main path's shapes, then (B=37) the other template instances:
@@ -252,9 +342,13 @@ def kernel_phase(kr, device, card):
         torch.cuda.synchronize()
         if K == ns + 1:
             compare("factor", fac_k, fac_p, results, tag)
-            compare("assemble_factor", asm_k, asm_p, results, tag)
+            compare("assemble_factor", asm_k, asm_p, results, tag,
+                    per_instance=True)
         compare("apply_bwd", hw_k, hw_p, results, tag)
-        compare("apply_fwd", fwd_k, fwd_p, results, tag)
+        compare("apply_fwd", fwd_k, fwd_p, results, tag, per_instance=True)
+        planted_faults(plants, (asm_args, asm_p),
+                       (app_args + (x["re"],) + tuple(hw_p), fwd_p),
+                       (Bsz, N_MAIN, R, nx, ns, K), tag)
         if Bsz == B_MAIN:
             times = {
                 "factor": (lambda: kr.factor_cuda(*fac_args),
@@ -274,14 +368,16 @@ def kernel_phase(kr, device, card):
             for name, (fk, fp) in times.items():
                 if K == 1 and name in ("factor", "assemble_factor"):
                     continue
-                ms = cuda_ms(fk, 20)
+                ms = graph_ms(fk)
+                eager = cuda_ms(fk, 20)
                 pms = cuda_ms(fp, 3, warmup=1)
                 ins, outs = io[name]
                 bms, by = bound(nbytes(*ins, *outs), riccati_ops(
                     name, Bsz, N_MAIN, nx, NU, R, ns, K))
-                log(f"time {name:16s} [{tag}] kernel {ms:.4f} ms, plain "
-                    f"{pms:.4f} ms, bound {bms:.4f} ms ({by}); no single "
-                    f"PyTorch call computes it  ({card})")
+                log(f"time {name:16s} [{tag}] kernel {ms:.4f} ms (eager "
+                    f"loop {eager:.4f} ms), plain {pms:.4f} ms, bound "
+                    f"{bms:.4f} ms ({by}); no single PyTorch call computes "
+                    f"it  ({card})")
                 key = "" if K == NS + 1 else "_k1"
                 results[name].update({"ms" + key: ms, "plain_ms" + key: pms,
                                       "bound_ms" + key: bms,
@@ -307,6 +403,24 @@ def kernel_phase(kr, device, card):
         log(f"kernel {name:16s} [NaN poison] instance 5 NaN: {poisoned}, "
             f"other 36 finite: {clean}")
         check(poisoned and clean, f"{name}: NaN poison not isolated")
+
+    # apply_fwd: instance 5 of 37 carries a NaN Huinv at stage 17
+    for K in (NS + 1, 1):
+        x = kernel_inputs(37, N_MAIN, K, SEED + 98 + K, device)
+        fac = kr.assemble_factor_ref(x["C"], x["D"], x["Ws"], x["Dr"],
+                                     x["qbd"], x["rbd"], x["Ad"], x["Bd"])
+        args = (*fac[:3], x["Ad"], x["Bd"], fac[3])
+        hw = kr.apply_bwd_ref(*args, x["rx"], x["ru"], x["re"])
+        Huinv = fac[0].clone()
+        Huinv[5, 17] = float("nan")
+        out = kr.apply_fwd_cuda(Huinv, *args[1:], x["re"], *hw)
+        others = torch.ones(37, dtype=torch.bool, device=device)
+        others[5] = False
+        poisoned = all(bool(torch.isnan(o[5]).any()) for o in out)
+        clean = all(bool(torch.isfinite(o[others]).all()) for o in out)
+        log(f"kernel {'apply_fwd':16s} [NaN Huinv, K={K}] instance 5 NaN: "
+            f"{poisoned}, other 36 finite: {clean}")
+        check(poisoned and clean, f"apply_fwd K={K}: NaN not isolated")
     return results
 
 
@@ -394,7 +508,7 @@ def dense_kernel_phase(device, card):
         torch.cuda.synchronize()
         compare("condense", out_k, out_p, results, tag)
         if Bsz == B_MAIN:
-            ms = cuda_ms(lambda: kcd.condense_cuda(Ad, Bd, dd), 20)
+            ms = graph_ms(lambda: kcd.condense_cuda(Ad, Bd, dd))
             pms = cuda_ms(lambda: kcd.condense_ref(Ad, Bd, dd), 3, warmup=1)
             ops = Bsz * N_MAIN * 2 * nx * nx * (N_MAIN * NU + nx + 1)
             bms, by = bound(nbytes(Ad, Bd, dd, *out_k), ops)
@@ -439,7 +553,7 @@ def dense_kernel_phase(device, card):
                     4 * Bsz * (tri + 2 * n), Bsz * 2 * n * n),
             }
             for name, (fk, fp, fl, lib, nb, ops) in cases.items():
-                ms = cuda_ms(fk, 20)
+                ms = graph_ms(fk)
                 pms = cuda_ms(fp, 10)
                 lms = cuda_ms(fl, 10)
                 bms, by = bound(nb, ops)
@@ -870,17 +984,21 @@ def main() -> int:
     log(f"card: {card}; torch {torch.__version__} cuda {torch.version.cuda}")
     try:
         t0 = time.perf_counter()
-        libs = kbuild.build()
+        plant_defs = {n: (f"RICCATI_PLANT={n}",) for n in PLANTS}
+        libs = kbuild.build(*kbuild.SOURCES, *(
+            ("riccati.cu", d) for d in plant_defs.values()))
         log(f"build: {[os.path.relpath(lib, ROOT) for lib in libs]} in "
-            f"{time.perf_counter() - t0:.1f} s (one nvcc per source, "
+            f"{time.perf_counter() - t0:.1f} s (one nvcc per library, "
             "in parallel)")
-        for lib in libs:
+        plants = {n: kbuild.Library("riccati.cu", kr._LIB.signatures, d)
+                  for n, d in plant_defs.items()}
+        for lib in libs[:len(kbuild.SOURCES)]:
             with open(lib[:-3] + ".log") as f:
                 for line in f:
                     if ("registers" in line or "spill" in line
                             or "Compiling entry" in line):
                         log("ptxas: " + line.strip())
-        kres = kernel_phase(kr, device, card)
+        kres = kernel_phase(kr, device, card, plants)
         kres.update(dense_kernel_phase(device, card))
         track, _ = load_track(os.path.join(ROOT, "data", "fsg2019.csv"),
                               dtype=torch.float32, device=device)

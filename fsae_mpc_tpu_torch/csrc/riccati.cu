@@ -16,21 +16,52 @@
 //
 // Design.  On the TPU the batch rode the 128 vector lanes and the stage
 // loop was the sequential grid axis, with the Riccati carry in VMEM
-// scratch.  Here one thread owns one QP instance (apply: one instance and
-// one right-hand side) and runs the whole stage loop itself; the carry
-// (P, p or dx) and the per-stage blocks live in registers (nx <= 9,
-// nu == 2, ns <= 4, templated so every loop unrolls).  Threads never
-// talk to each other, so a NaN-poisoned instance cannot reach its
-// neighbours.
+// scratch.  Here the batch-first layout of the Python API is kept, so one
+// instance's data is contiguous, and the two sweeps that carry most of
+// the work are block-cooperative per instance:
 //
-// What bounds it.  All tensors are batch-first, as at the Python API:
-// thread b reads instance b's contiguous per-stage blocks, so the 32
-// threads of a warp touch 32 addresses one block apart -- the loads are
-// not coalesced and each sweep is latency-bound on device-memory (L2)
-// reads, with 1024 instances filling only 8-16 of the 132 SMs at one
-// thread each.  A batch-last layout (stage blocks interleaved across
-// instances, as the TPU kernels had them) would coalesce the reads; that
-// is a later change.  The arithmetic is tiny (~2 kFLOP per stage).
+//   K1 assemble_factor: one block of 128 threads per instance, in
+//     chunks of whole stages (or, for a long stage, of its rows) from the
+//     last stage to the first.  Warps 1-3 stage chunk c + 2 (its rows
+//     C | D | Ws | Dr and its A, B) into a ring of four shared-memory
+//     buffers with cp.async, coalesced, 16 bytes a copy where the range
+//     allows, and assemble chunk c: the assembly is independent across
+//     stages, so they split the chunk's (stage, Gram entry) pairs, each
+//     an r-term dot product over the rows z = [c | e | w] weighted by Dr,
+//     into a tile of Qb, Rb, Mq, Lx, Lu, Hss (which leave as contiguous
+//     runs).  Meanwhile warp 0 runs the sequential recursion over chunk
+//     c - 1 from the other tile, its lanes owning entries of P, W, WA, V
+//     and G.  One block barrier a chunk.
+//   K3 apply_fwd: one block per instance (and per KB right-hand sides);
+//     a thread owns one (rhs, row) entry of the dx carry.  The factor
+//     blocks and the rhs' re, h, w are staged into a ring of three
+//     shared-memory buffers a chunk of stages at a time, two chunks
+//     ahead, so each factor block is read once per instance, not once
+//     per rhs.  The carry passes through shared memory (two buffers, one
+//     barrier per stage).
+//
+// K2 and K4 keep the first design: one thread owns one instance (K2: one
+// instance and one right-hand side) and runs the stage loop with the
+// carry and the stage blocks in registers (nx <= 9, nu == 2, ns <= 4,
+// templated so every loop unrolls); their loads are not coalesced.
+// Instances never share arithmetic in any sweep, so a NaN-poisoned
+// instance cannot reach its neighbours.
+//
+// What bounds it.  Each sweep moves its inputs once and its outputs once
+// (K1 ~80 KB an instance at N=40, nx=7, r=20, ns=4; K3 ~40 KB at K=5),
+// ~24 us and ~15 us for B=1024 at the card's memory rate; the arithmetic
+// is tiny (~2 kFLOP per stage and rhs).  What holds them above that is
+// latency: each stage of the recursions is a chain of dependent
+// shared-memory dot products and barriers, and the staging needs several
+// chunks in flight per SM to cover device-memory latency.  Hence the
+// rings, the chunk sizes (AF_STAGE_FLOATS, FWD_STAGE_FLOATS) and
+// eight resident K1 blocks per SM (registers capped at 64); at B=1024
+// K1 runs in one wave.
+
+// Planted faults.  Built with -DRICCATI_PLANT=n (n = 1..4), K1 or K3
+// carries one deliberate fault (see PLANT below); chip_smoke.py builds
+// those copies beside the real one and requires its comparisons to fail
+// them.  Without the macro the fault sites compile to nothing.
 //
 // Numerics.  Built without --use_fast_math: a non-SPD 2x2 pivot (det <= 0
 // or Hu00 <= 0) must come out NaN, never clamped, because the IPM's
@@ -40,8 +71,19 @@
 // error-free transforms, and the tolerances against the plain PyTorch
 // versions are stated where they are compared.
 
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#ifndef RICCATI_PLANT
+#define RICCATI_PLANT 0
+#endif
+// fault n is compiled in only under -DRICCATI_PLANT=n:
+//   1  K1 drops row 3 of stage 17 from the assembly
+//   2  K1 stages its second chunk one stage late
+//   3  K3 does not advance the dx carry at stage 17
+//   4  K3 swaps right-hand sides 0 and 1 of instance 5
+#define PLANT(n) (RICCATI_PLANT == (n))
 
 namespace {
 
@@ -215,11 +257,131 @@ factor_kernel(const float* __restrict__ Ad, const float* __restrict__ Bd,
 }
 
 // ---------------------------------------------------------------------------
-// K1: fused quadform assembly + factor sweep
+// Staging through shared memory (K1, K3)
 // ---------------------------------------------------------------------------
 
+// Floats past the last 16-byte boundary of a global address.
+__device__ __forceinline__ int misalign(const float* p) {
+  return (int)(((uintptr_t)p >> 2) & 3);
+}
+
+// Where stage_async puts src in the region at dst (16-byte aligned): at
+// the same offset mod 16 bytes as src, so the aligned body of the range
+// moves 16 bytes a copy.
+__device__ __forceinline__ float* staged(float* dst, const float* src) {
+  return dst + misalign(src);
+}
+
+// Issue cp.async copies of the n floats at src into the shared region dst
+// (16-byte aligned, region(n) floats), spread over threads tid of nthr:
+// coalesced 16-byte copies for the aligned body, 4-byte ones for the
+// ragged head and tail.  The caller commits and waits.
+__device__ __forceinline__ void stage_async(float* dst, const float* src,
+                                            int n, int tid, int nthr) {
+  float* d = staged(dst, src);
+  const int head = min(n, (4 - misalign(src)) & 3);
+  const int nvec = (n - head) >> 2;
+  for (int i = tid; i < head; i += nthr)
+    __pipeline_memcpy_async(d + i, src + i, 4);
+  for (int i = tid; i < nvec; i += nthr)
+    __pipeline_memcpy_async(d + head + 4 * i, src + head + 4 * i, 16);
+  for (int i = head + 4 * nvec + tid; i < n; i += nthr)
+    __pipeline_memcpy_async(d + i, src + i, 4);
+}
+
+// Shared-memory floats of a staged region of n floats: slack for the
+// offset, rounded up to keep the next region 16-byte aligned.
+__host__ __device__ constexpr int region(int n) { return (n + 3 + 3) & ~3; }
+
+// ---------------------------------------------------------------------------
+// K1: fused quadform assembly + factor sweep, one block per instance
+// ---------------------------------------------------------------------------
+//
+// The assembly is the Gram matrix Z' diag(Dr) Z of each stage's rows
+// z = [c (nx) | e (nu) | w (ns)]: its upper triangle (E entries) holds
+// Qb - diag(qbd), Mq, Lx, Rb - diag(rbd), Lu and Hss.  A chunk is a
+// contiguous run of rows: ch whole stages, or (for a long stage, ch == 1)
+// rc of one stage's rows, whose partial sums stay in registers until the
+// stage's last rows are in.  Chunks go from the last stage to the first,
+// the order of the recursion.
+//
+// Warps 1-3 (the producers) stage chunk c + AF_AHEAD (its rows, A and B)
+// into a ring of AF_RING buffers and assemble chunk c into one of two
+// tiles, while warp 0 runs the recursion over chunk c - 1 from the other
+// tile; one block barrier a chunk.
+
+constexpr int AF_THREADS = 128;
+constexpr int AF_PRODUCERS = AF_THREADS - 32;
+constexpr int AF_ITEMS = 4;            // (stage, entry) pairs a producer holds
+constexpr int AF_AHEAD = 2;            // chunks in flight past the one assembled
+constexpr int AF_RING = AF_AHEAD + 2;  // staging buffers
+constexpr int AF_STAGE_FLOATS = 1536;  // one staging buffer
+
 template <int NX, int NS>
-__global__ void __launch_bounds__(THREADS)
+struct AfShape {
+  static constexpr int M = NX + NU + NS;   // width of a row z
+  static constexpr int E = M * (M + 1) / 2;
+};
+
+// Shared-memory layout of K1 (offsets in floats, 16-byte aligned).
+struct AfLayout {
+  int C, D, Ws, Dr, A, B, buf;       // in a staging buffer; buf: its size
+  int Q, R, Mq, Lx, Lu, Hss, tile;   // in an assembled tile; tile: its size
+  int tiles, rec, pairs, total;
+  __host__ __device__ AfLayout(int ch, int rows, int nx, int ns) {
+    C = 0;
+    D = C + region(rows * nx);
+    Ws = D + region(rows * NU);
+    Dr = Ws + region(rows * ns);
+    A = Dr + region(rows);
+    B = A + region(ch * nx * nx);
+    buf = B + region(ch * nx * NU);
+    Q = 0;
+    R = Q + ch * nx * nx;
+    Mq = R + ch * NU * NU;
+    Lx = Mq + ch * nx * NU;
+    Lu = Lx + ch * nx * ns;
+    Hss = Lu + ch * NU * ns;
+    tile = (Hss + ch * ns * ns + 3) & ~3;
+    tiles = AF_RING * buf;
+    rec = tiles + 2 * tile;                           // W, WA, V, G
+    pairs = rec + ((2 * nx * nx + 4 * nx + 3) & ~3);
+    const int m = nx + NU + ns;
+    total = pairs + (m * (m + 1) / 2 + 1) / 2;
+  }
+};
+
+// Chunk c: stages [k0, k0 + ch), rows [q0, q0 + rc) of each.
+struct AfChunk {
+  int k0, ch, q0, rc;
+  bool last;   // holds the stages' last rows
+  __device__ AfChunk(int c, int N, int r, int ch_max, int rc_max) {
+    const int nq = (r + rc_max - 1) / rc_max;
+    const int ng = (N + ch_max - 1) / ch_max;
+    k0 = (ng - 1 - c / nq) * ch_max;
+    ch = min(ch_max, N - k0);
+    q0 = c % nq * rc_max;
+    rc = min(rc_max, r - q0);
+    last = q0 + rc == r;
+  }
+};
+
+// Entry (i, j) of A'WA - G' Hu^-1 G, with WA = W A and G in shared memory.
+template <int NX>
+__device__ __forceinline__ float p_entry(const float* Ak, const float* WAr,
+                                         const float* Gr, float h00,
+                                         float h01, float h10, float h11,
+                                         int i, int j) {
+  const float kg0 = h00 * Gr[j] + h01 * Gr[NX + j];
+  const float kg1 = h10 * Gr[j] + h11 * Gr[NX + j];
+  float acc = 0.0f;
+#pragma unroll
+  for (int m = 0; m < NX; ++m) acc += Ak[m * NX + i] * WAr[m * NX + j];
+  return acc - (Gr[i] * kg0 + Gr[NX + i] * kg1);
+}
+
+template <int NX, int NS>
+__global__ void __launch_bounds__(AF_THREADS, 8)
 assemble_factor_kernel(
     const float* __restrict__ C, const float* __restrict__ D,
     const float* __restrict__ Ws, const float* __restrict__ Dr,
@@ -227,108 +389,252 @@ assemble_factor_kernel(
     const float* __restrict__ Ad, const float* __restrict__ Bd,
     float* __restrict__ Huinv, float* __restrict__ G, float* __restrict__ W,
     float* __restrict__ Mq_out, float* __restrict__ Lx_out,
-    float* __restrict__ Lu_out, float* __restrict__ Hss_out, int batch,
-    int N, int r) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= batch) return;
-  float P[NX][NX];
-#pragma unroll
-  for (int i = 0; i < NX; ++i)
-#pragma unroll
-    for (int j = 0; j < NX; ++j) P[i][j] = 0.0f;
+    float* __restrict__ Lu_out, float* __restrict__ Hss_out, int N, int r,
+    int ch_max, int rc_max) {
+  using S = AfShape<NX, NS>;
+  extern __shared__ __align__(16) float sm[];
+  const AfLayout L(ch_max, ch_max * rc_max, NX, NS);
+  const int tid = threadIdx.x;
+  const int64_t b = blockIdx.x;
+  unsigned short* pairs = reinterpret_cast<unsigned short*>(sm + L.pairs);
 
-  for (int k = N - 1; k >= 0; --k) {
-    const int64_t s = (int64_t)b * N + k;
-    float Q[NX][NX], R[NU][NU], M[NX][NU], Lx[NX][NS], Lu[NU][NS],
-        Hss[NS][NS];
-#pragma unroll
-    for (int i = 0; i < NX; ++i) {
-#pragma unroll
-      for (int j = 0; j < NX; ++j) Q[i][j] = 0.0f;
-#pragma unroll
-      for (int u = 0; u < NU; ++u) M[i][u] = 0.0f;
-#pragma unroll
-      for (int j = 0; j < NS; ++j) Lx[i][j] = 0.0f;
-    }
-#pragma unroll
-    for (int u = 0; u < NU; ++u) {
-#pragma unroll
-      for (int v = 0; v < NU; ++v) R[u][v] = 0.0f;
-#pragma unroll
-      for (int j = 0; j < NS; ++j) Lu[u][j] = 0.0f;
-    }
-#pragma unroll
-    for (int i = 0; i < NS; ++i)
-#pragma unroll
-      for (int j = 0; j < NS; ++j) Hss[i][j] = 0.0f;
+  // the upper triangle of the Gram matrix, row by row: entry -> (a, c)
+  for (int e = tid; e < S::E; e += AF_THREADS) {
+    int a = 0, rem = e;
+    while (rem >= S::M - a) rem -= S::M - a++;
+    pairs[e] = (unsigned short)((a << 8) | (a + rem));
+  }
 
-    const float* Ck = C + s * r * NX;
-    const float* Dk = D + s * r * NU;
-    const float* Wk = Ws + s * r * NS;
-    const float* drk = Dr + s * r;
-    for (int q = 0; q < r; ++q) {
-      const float d = drk[q];
-      float c[NX], cd[NX], e[NU], ed[NU], w[NS], wd[NS];
-#pragma unroll
-      for (int i = 0; i < NX; ++i) {
-        c[i] = Ck[q * NX + i];
-        cd[i] = c[i] * d;
-      }
-#pragma unroll
-      for (int u = 0; u < NU; ++u) {
-        e[u] = Dk[q * NU + u];
-        ed[u] = e[u] * d;
-      }
-#pragma unroll
-      for (int j = 0; j < NS; ++j) {
-        w[j] = Wk[q * NS + j];
-        wd[j] = w[j] * d;
-      }
-#pragma unroll
-      for (int i = 0; i < NX; ++i) {
-#pragma unroll
-        for (int j = 0; j < NX; ++j) Q[i][j] += c[i] * cd[j];
-#pragma unroll
-        for (int u = 0; u < NU; ++u) M[i][u] += c[i] * ed[u];
-#pragma unroll
-        for (int j = 0; j < NS; ++j) Lx[i][j] += c[i] * wd[j];
-      }
-#pragma unroll
-      for (int u = 0; u < NU; ++u) {
-#pragma unroll
-        for (int v = 0; v < NU; ++v) R[u][v] += e[u] * ed[v];
-#pragma unroll
-        for (int j = 0; j < NS; ++j) Lu[u][j] += e[u] * wd[j];
-      }
-#pragma unroll
-      for (int i = 0; i < NS; ++i)
-#pragma unroll
-        for (int j = 0; j < NS; ++j) Hss[i][j] += w[i] * wd[j];
-    }
-#pragma unroll
-    for (int i = 0; i < NX; ++i) Q[i][i] += qbd[s * NX + i];
-#pragma unroll
-    for (int u = 0; u < NU; ++u) R[u][u] += rbd[s * NU + u];
+  const int nchunk = (N + ch_max - 1) / ch_max * ((r + rc_max - 1) / rc_max);
+  const int pt = tid - 32;   // producer thread
+  auto row0_of = [&](int c, const AfChunk& x) {
+    int64_t row0 = (b * N + x.k0) * r + x.q0;
+    if (PLANT(2) && c == 1) row0 += r;
+    return row0;
+  };
+  auto issue = [&](int c) {
+    const AfChunk x(c, N, r, ch_max, rc_max);
+    const int64_t row0 = row0_of(c, x), s0 = b * N + x.k0;
+    const int rows = x.ch * x.rc;
+    float* buf = sm + c % AF_RING * L.buf;
+    stage_async(buf + L.C, C + row0 * NX, rows * NX, pt, AF_PRODUCERS);
+    stage_async(buf + L.D, D + row0 * NU, rows * NU, pt, AF_PRODUCERS);
+    stage_async(buf + L.Ws, Ws + row0 * NS, rows * NS, pt, AF_PRODUCERS);
+    stage_async(buf + L.Dr, Dr + row0, rows, pt, AF_PRODUCERS);
+    stage_async(buf + L.A, Ad + s0 * NX * NX, x.ch * NX * NX, pt,
+                AF_PRODUCERS);
+    stage_async(buf + L.B, Bd + s0 * NX * NU, x.ch * NX * NU, pt,
+                AF_PRODUCERS);
+  };
 
-#pragma unroll
-    for (int i = 0; i < NX; ++i) {
-#pragma unroll
-      for (int u = 0; u < NU; ++u) Mq_out[s * NX * NU + i * NU + u] = M[i][u];
-#pragma unroll
-      for (int j = 0; j < NS; ++j) Lx_out[s * NX * NS + i * NS + j] = Lx[i][j];
+  if (tid >= 32) {
+    for (int c = 0; c < AF_AHEAD; ++c) {
+      if (c < nchunk) issue(c);
+      __pipeline_commit();     // (an empty group past the last chunk)
     }
-#pragma unroll
-    for (int u = 0; u < NU; ++u)
-#pragma unroll
-      for (int j = 0; j < NS; ++j) Lu_out[s * NU * NS + u * NS + j] = Lu[u][j];
-#pragma unroll
-    for (int i = 0; i < NS; ++i)
-#pragma unroll
-      for (int j = 0; j < NS; ++j)
-        Hss_out[s * NS * NS + i * NS + j] = Hss[i][j];
+    __pipeline_wait_prior(AF_AHEAD - 1);   // chunk 0 is in
+  }
+  __syncthreads();
 
-    riccati_stage<NX>(P, Q, R, M, Ad + s * NX * NX, Bd + s * NX * NU,
-                      Huinv + s * NU * NU, G + s * NU * NX, W + s * NX * NX);
+  // producers: partial Gram sums; warp 0: the upper triangle of P
+  float acc[AF_ITEMS];
+#pragma unroll
+  for (int t = 0; t < AF_ITEMS; ++t) acc[t] = 0.0f;
+  constexpr int TRI = NX * (NX + 1) / 2;
+  constexpr int NT = (TRI + 31) / 32;
+  constexpr int NE = (NX * NX + 31) / 32;
+  const int lane = tid & 31;
+  int ui[NT], uj[NT];
+  float pv[NT];
+#pragma unroll
+  for (int t = 0; t < NT; ++t) {
+    int a = 0, rem = min(lane + 32 * t, TRI - 1);
+    while (rem >= NX - a) rem -= NX - a++;
+    ui[t] = a;
+    uj[t] = a + rem;
+    pv[t] = 0.0f;
+  }
+
+  for (int c = 0; c <= nchunk; ++c) {
+    if (tid >= 32) {
+      if (c >= 1) {                   // chunk c-1's stages leave, coalesced
+        const AfChunk x(c - 1, N, r, ch_max, rc_max);
+        if (x.last) {
+          const float* T = sm + L.tiles + ((c - 1) & 1) * L.tile;
+          const int64_t s0 = b * N + x.k0;
+          for (int i = pt; i < x.ch * NX * NU; i += AF_PRODUCERS)
+            Mq_out[s0 * NX * NU + i] = T[L.Mq + i];
+          for (int i = pt; i < x.ch * NX * NS; i += AF_PRODUCERS)
+            Lx_out[s0 * NX * NS + i] = T[L.Lx + i];
+          for (int i = pt; i < x.ch * NU * NS; i += AF_PRODUCERS)
+            Lu_out[s0 * NU * NS + i] = T[L.Lu + i];
+          for (int i = pt; i < x.ch * NS * NS; i += AF_PRODUCERS)
+            Hss_out[s0 * NS * NS + i] = T[L.Hss + i];
+        }
+      }
+      if (c < nchunk) {               // assemble chunk c into tile c & 1
+        const AfChunk x(c, N, r, ch_max, rc_max);
+        const int64_t row0 = row0_of(c, x);
+        float* buf = sm + c % AF_RING * L.buf;
+        float* T = sm + L.tiles + (c & 1) * L.tile;
+        const float* Ct = staged(buf + L.C, C + row0 * NX);
+        const float* Dt = staged(buf + L.D, D + row0 * NU);
+        const float* Wt = staged(buf + L.Ws, Ws + row0 * NS);
+        const float* dt = staged(buf + L.Dr, Dr + row0);
+#pragma unroll
+        for (int t = 0; t < AF_ITEMS; ++t) {
+          const int item = pt + t * AF_PRODUCERS;
+          if (item < x.ch * S::E) {
+            const int s = item / S::E;
+            const int pr = pairs[item - s * S::E];
+            const int a = pr >> 8, cc = pr & 0xff;
+            // columns a and cc of the rows z: first entry and row stride
+            const float* za = a < NX ? Ct + a
+                              : a < NX + NU ? Dt + (a - NX)
+                                            : Wt + (a - NX - NU);
+            const int sa = a < NX ? NX : a < NX + NU ? NU : NS;
+            const float* zc = cc < NX ? Ct + cc
+                              : cc < NX + NU ? Dt + (cc - NX)
+                                             : Wt + (cc - NX - NU);
+            const int sc = cc < NX ? NX : cc < NX + NU ? NU : NS;
+            const int k = x.k0 + s;
+            const int q1 = (s + 1) * x.rc;
+            float sum = 0.0f;
+#pragma unroll 4
+            for (int row = s * x.rc; row < q1; ++row) {
+              if (PLANT(1) && k == 17 && x.q0 + row - s * x.rc == 3) continue;
+              sum += za[row * sa] * (zc[row * sc] * dt[row]);
+            }
+            acc[t] += sum;
+            if (x.last) {
+              float v = acc[t];
+              acc[t] = 0.0f;
+              if (cc < NX) {                          // Qb
+                if (a == cc) v += __ldg(qbd + (b * N + k) * NX + a);
+                T[L.Q + s * NX * NX + a * NX + cc] = v;
+                T[L.Q + s * NX * NX + cc * NX + a] = v;
+              } else if (a < NX && cc < NX + NU) {    // Mq
+                T[L.Mq + s * NX * NU + a * NU + (cc - NX)] = v;
+              } else if (a < NX) {                    // Lx
+                T[L.Lx + s * NX * NS + a * NS + (cc - NX - NU)] = v;
+              } else if (cc < NX + NU) {              // Rb
+                const int u = a - NX, w = cc - NX;
+                if (u == w) v += __ldg(rbd + (b * N + k) * NU + u);
+                T[L.R + s * NU * NU + u * NU + w] = v;
+                T[L.R + s * NU * NU + w * NU + u] = v;
+              } else if (a < NX + NU) {               // Lu
+                T[L.Lu + s * NU * NS + (a - NX) * NS + (cc - NX - NU)] = v;
+              } else {                                // Hss
+                const int i = a - NX - NU, j = cc - NX - NU;
+                T[L.Hss + s * NS * NS + i * NS + j] = v;
+                T[L.Hss + s * NS * NS + j * NS + i] = v;
+              }
+            }
+          }
+        }
+      }
+      if (c + AF_AHEAD < nchunk) issue(c + AF_AHEAD);
+      __pipeline_commit();
+      __pipeline_wait_prior(AF_AHEAD - 1);   // chunk c + 1 is in
+    } else if (c >= 1) {
+      // warp 0: the backward recursion over chunk c-1's stages.  Lane l
+      // owns the upper-triangle entries l + 32 t of P and W, and the
+      // entries l + 32 t of WA = W A (row-major).
+      const AfChunk x(c - 1, N, r, ch_max, rc_max);
+      if (x.last) {
+        float* buf = sm + (c - 1) % AF_RING * L.buf;
+        const float* T = sm + L.tiles + ((c - 1) & 1) * L.tile;
+        const int64_t s0 = b * N + x.k0;
+        const float* As = staged(buf + L.A, Ad + s0 * NX * NX);
+        const float* Bs = staged(buf + L.B, Bd + s0 * NX * NU);
+        float* Wr = sm + L.rec;
+        float* WAr = Wr + NX * NX;
+        float* Vr = WAr + NX * NX;       // V = W B + M, (nx, nu)
+        float* Gr = Vr + NX * NU;        // G = V' A, (nu, nx)
+        for (int s = x.ch - 1; s >= 0; --s) {
+          const int64_t sk = s0 + s;
+          const float* Ak = As + s * NX * NX;
+          const float* Bk = Bs + s * NX * NU;
+          const float* Qk = T + L.Q + s * NX * NX;
+          const float* Rk = T + L.R + s * NU * NU;
+          const float* Mk = T + L.Mq + s * NX * NU;
+#pragma unroll
+          for (int t = 0; t < NT; ++t) {          // W = Qb + P
+            if (lane + 32 * t < TRI) {
+              const int i = ui[t], j = uj[t];
+              const float w = Qk[i * NX + j] + pv[t];
+              Wr[i * NX + j] = w;
+              Wr[j * NX + i] = w;
+              W[sk * NX * NX + i * NX + j] = w;
+              if (i != j) W[sk * NX * NX + j * NX + i] = w;
+            }
+          }
+          __syncwarp();
+#pragma unroll
+          for (int t = 0; t < NE; ++t) {          // WA = W A
+            const int e = lane + 32 * t;
+            if (e < NX * NX) {
+              const int i = e / NX, j = e - i * NX;
+              float a2 = 0.0f;
+#pragma unroll
+              for (int m = 0; m < NX; ++m) a2 += Wr[i * NX + m] * Ak[m * NX + j];
+              WAr[e] = a2;
+            }
+          }
+          if (lane < NX * NU) {                   // V = W B + M
+            const int i = lane / NU, u = lane - i * NU;
+            float a2 = 0.0f;
+#pragma unroll
+            for (int j = 0; j < NX; ++j) a2 += Wr[i * NX + j] * Bk[j * NU + u];
+            Vr[lane] = a2 + Mk[lane];
+          }
+          __syncwarp();
+          float hu = 0.0f;                        // Hu = Rb + B'V + M'B
+          if (lane < NU * NU) {
+            const int u = lane / NU, v = lane - u * NU;
+            hu = Rk[lane];
+#pragma unroll
+            for (int i = 0; i < NX; ++i) hu += Bk[i * NU + u] * Vr[i * NU + v];
+#pragma unroll
+            for (int i = 0; i < NX; ++i) hu += Mk[i * NU + u] * Bk[i * NU + v];
+          }
+          float Hu[NU][NU], Hi[NU][NU];
+          Hu[0][0] = __shfl_sync(0xffffffffu, hu, 0);
+          Hu[0][1] = __shfl_sync(0xffffffffu, hu, 1);
+          Hu[1][0] = __shfl_sync(0xffffffffu, hu, 2);
+          Hu[1][1] = __shfl_sync(0xffffffffu, hu, 3);
+          inv2_poison(Hu, Hi);
+          if (lane < NU * NX) {                   // G = V' A
+            const int u = lane / NX, j = lane - u * NX;
+            float a2 = 0.0f;
+#pragma unroll
+            for (int i = 0; i < NX; ++i) a2 += Vr[i * NU + u] * Ak[i * NX + j];
+            Gr[lane] = a2;
+            G[sk * NU * NX + lane] = a2;
+          }
+          if (lane < NU * NU)
+            Huinv[sk * NU * NU + lane] = lane == 0   ? Hi[0][0]
+                                         : lane == 1 ? Hi[0][1]
+                                         : lane == 2 ? Hi[1][0]
+                                                     : Hi[1][1];
+          __syncwarp();
+#pragma unroll
+          for (int t = 0; t < NT; ++t) {          // P = sym(A'WA - G'Hu^-1 G)
+            if (lane + 32 * t < TRI) {
+              const int i = ui[t], j = uj[t];
+              const float pij = p_entry<NX>(Ak, WAr, Gr, Hi[0][0], Hi[0][1],
+                                            Hi[1][0], Hi[1][1], i, j);
+              pv[t] = i == j ? pij
+                             : 0.5f * (pij + p_entry<NX>(
+                                                 Ak, WAr, Gr, Hi[0][0],
+                                                 Hi[0][1], Hi[1][0],
+                                                 Hi[1][1], j, i));
+            }
+          }
+        }
+      }
+    }
+    __syncthreads();
   }
 }
 
@@ -403,69 +709,146 @@ apply_bwd_kernel(const float* __restrict__ Huinv, const float* __restrict__ G,
 }
 
 // ---------------------------------------------------------------------------
-// K3: forward rollout sweep
+// K3: forward rollout sweep, one instance and KB right-hand sides a block
 // ---------------------------------------------------------------------------
+//
+// Thread tid = kq * nx + i owns entry i of the dx carry of right-hand side
+// kk0 + kq of instance b.  rhs tensors are (B, K, N, n), the factor blocks
+// (B, N, ...).  Chunks of ch stages are staged into a ring of FWD_RING
+// buffers, FWD_AHEAD chunks ahead.  At K=1 a block is one warp with nx lanes at
+// work: packing several instances into it leaves fewer warps per SM to
+// issue the staging and the carry chains, and ran slower.
+
+constexpr int FWD_MAX_THREADS = 1024;
+constexpr int FWD_AHEAD = 2;           // chunks in flight past the one in use
+constexpr int FWD_RING = FWD_AHEAD + 1;
+constexpr int FWD_STAGE_FLOATS = 2048;  // factor blocks + rhs per buffer
+
+// Shared-memory layout of K3 (offsets in floats, 16-byte aligned): the
+// ring of staging buffers, each the six factor regions then KB rhs' re,
+// h, w regions, all ch stages long; then the carry's two buffers.
+struct FwdLayout {
+  int hi, g, w, a, b, m, fac, re, h, wv, rhs, buf, dx, total;
+  __host__ __device__ FwdLayout(int ch, int kb, int nx) {
+    hi = 0;
+    g = hi + region(ch * NU * NU);
+    w = g + region(ch * NU * nx);
+    a = w + region(ch * nx * nx);
+    b = a + region(ch * nx * nx);
+    m = b + region(ch * nx * NU);
+    fac = m + region(ch * nx * NU);
+    re = 0;
+    h = re + region(ch * nx);
+    wv = h + region(ch * NU);
+    rhs = wv + region(ch * nx);
+    buf = fac + kb * rhs;
+    dx = FWD_RING * buf;
+    total = dx + 2 * kb * nx;
+  }
+};
+
+// The rhs whose inputs the pair (instance bb, rhs k) reads.
+__device__ __forceinline__ int src_rhs(int64_t bb, int k, int K) {
+  return PLANT(4) && bb == 5 && k < 2 && K >= 2 ? 1 - k : k;
+}
 
 template <int NX>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(FWD_MAX_THREADS)
 apply_fwd_kernel(const float* __restrict__ Huinv, const float* __restrict__ G,
                  const float* __restrict__ W, const float* __restrict__ Ad,
                  const float* __restrict__ Bd, const float* __restrict__ Mm,
                  const float* __restrict__ re, const float* __restrict__ h_in,
                  const float* __restrict__ w_in, float* __restrict__ du_out,
                  float* __restrict__ dx_out, float* __restrict__ dlam_out,
-                 int batch, int K, int N) {
-  const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= batch * K) return;
-  const int b = t / K;
-  float dx[NX];
-#pragma unroll
-  for (int i = 0; i < NX; ++i) dx[i] = 0.0f;
+                 int K, int N, int kb_max, int ch_max) {
+  extern __shared__ __align__(16) float sm[];
+  const FwdLayout L(ch_max, kb_max, NX);
+  const int tid = threadIdx.x, nthr = blockDim.x;
+  const int64_t b = blockIdx.x;
+  const int kk0 = blockIdx.y * kb_max, kb = min(kb_max, K - kk0);
+  const int kq = tid / NX, i = tid - kq * NX;
+  const bool active = kq < kb;
+  const int kk = kk0 + kq;
 
-  for (int k = 0; k < N; ++k) {
-    const int64_t s = (int64_t)b * N + k;
-    const int64_t v = (int64_t)t * N + k;
-    const float* A = Ad + s * NX * NX;
-    const float* B = Bd + s * NX * NU;
-    const float* M = Mm + s * NX * NU;
-    const float* Wk = W + s * NX * NX;
-    const float* Hi = Huinv + s * NU * NU;
-    const float* Gk = G + s * NU * NX;
-    float tt[NU], du[NU];
-#pragma unroll
-    for (int u = 0; u < NU; ++u) {               // t = dx G' + h
-      float acc = h_in[v * NU + u];
-#pragma unroll
-      for (int j = 0; j < NX; ++j) acc += dx[j] * Gk[u * NX + j];
-      tt[u] = acc;
+  auto issue = [&](int c) {
+    const int k0 = c * ch_max, ch = min(ch_max, N - k0);
+    const int64_t s0 = b * N + k0;
+    float* f = sm + c % FWD_RING * L.buf;
+    stage_async(f + L.hi, Huinv + s0 * NU * NU, ch * NU * NU, tid, nthr);
+    stage_async(f + L.g, G + s0 * NU * NX, ch * NU * NX, tid, nthr);
+    stage_async(f + L.w, W + s0 * NX * NX, ch * NX * NX, tid, nthr);
+    stage_async(f + L.a, Ad + s0 * NX * NX, ch * NX * NX, tid, nthr);
+    stage_async(f + L.b, Bd + s0 * NX * NU, ch * NX * NU, tid, nthr);
+    stage_async(f + L.m, Mm + s0 * NX * NU, ch * NX * NU, tid, nthr);
+    for (int q = 0; q < kb; ++q) {
+      const int64_t v0 = (b * K + src_rhs(b, kk0 + q, K)) * N + k0;
+      float* rr = f + L.fac + q * L.rhs;
+      stage_async(rr + L.re, re + v0 * NX, ch * NX, tid, nthr);
+      stage_async(rr + L.h, h_in + v0 * NU, ch * NU, tid, nthr);
+      stage_async(rr + L.wv, w_in + v0 * NX, ch * NX, tid, nthr);
     }
+  };
+
+  float* carry = sm + L.dx + kq * NX;
+  if (tid < kb_max * NX) sm[L.dx + tid] = 0.0f;   // dx_0 = 0
+  const int nchunk = (N + ch_max - 1) / ch_max;
+  for (int c = 0; c < FWD_AHEAD; ++c) {
+    if (c < nchunk) issue(c);
+    __pipeline_commit();       // (an empty group past the last chunk)
+  }
+  for (int c = 0; c < nchunk; ++c) {
+    // chunk c + FWD_AHEAD goes where chunk c - 1 was
+    if (c + FWD_AHEAD < nchunk) issue(c + FWD_AHEAD);
+    __pipeline_commit();
+    __pipeline_wait_prior(FWD_AHEAD);      // chunk c is in
+    __syncthreads();
+    const int k0 = c * ch_max, ch = min(ch_max, N - k0);
+    float* f = sm + c % FWD_RING * L.buf;
+    float* rr = f + L.fac + kq * L.rhs;
+    const int64_t s0 = b * N + k0;
+    const int64_t v0 = (b * K + src_rhs(b, kk, K)) * N + k0;
+    for (int s = 0; s < ch; ++s) {
+      const int k = k0 + s;
+      const float* dx = carry + (k & 1) * kb_max * NX;
+      float* xn = carry + ((k + 1) & 1) * kb_max * NX;
+      const int64_t v = (b * K + kk) * N + k;
+      float du0 = 0.0f, du1 = 0.0f;
+      if (active) {
+        const float* Hi = staged(f + L.hi, Huinv + s0 * NU * NU) + s * NU * NU;
+        const float* Gk = staged(f + L.g, G + s0 * NU * NX) + s * NU * NX;
+        const float* A = staged(f + L.a, Ad + s0 * NX * NX) + s * NX * NX;
+        const float* Bk = staged(f + L.b, Bd + s0 * NX * NU) + s * NX * NU;
+        const float* hk = staged(rr + L.h, h_in + v0 * NU) + s * NU;
+        const float* rek = staged(rr + L.re, re + v0 * NX) + s * NX;
+        float t0 = hk[0], t1 = hk[1];              // t = dx G' + h
 #pragma unroll
-    for (int u = 0; u < NU; ++u)                 // du = -t Hu^-1'
-      du[u] = -(tt[0] * Hi[u * NU + 0] + tt[1] * Hi[u * NU + 1]);
-    float xn[NX];
+        for (int j = 0; j < NX; ++j) t0 += dx[j] * Gk[j];
 #pragma unroll
-    for (int i = 0; i < NX; ++i) {               // dx <- dx A' + du B' + re
-      float acc = re[v * NX + i];
+        for (int j = 0; j < NX; ++j) t1 += dx[j] * Gk[NX + j];
+        du0 = -(t0 * Hi[0] + t1 * Hi[1]);           // du = -t Hu^-1'
+        du1 = -(t0 * Hi[2] + t1 * Hi[3]);
+        float acc = rek[i];                         // dx <- dx A' + du B' + re
 #pragma unroll
-      for (int j = 0; j < NX; ++j) acc += dx[j] * A[i * NX + j];
-      acc += du[0] * B[i * NU + 0] + du[1] * B[i * NU + 1];
-      xn[i] = acc;
+        for (int j = 0; j < NX; ++j) acc += dx[j] * A[i * NX + j];
+        acc += du0 * Bk[i * NU + 0] + du1 * Bk[i * NU + 1];
+        if (PLANT(3) && k == 17) acc = dx[i];
+        xn[i] = acc;
+        dx_out[v * NX + i] = acc;
+        if (i < NU) du_out[v * NU + i] = i == 0 ? du0 : du1;
+      }
+      __syncthreads();
+      if (active) {
+        const float* Wk = staged(f + L.w, W + s0 * NX * NX) + s * NX * NX;
+        const float* Mk = staged(f + L.m, Mm + s0 * NX * NU) + s * NX * NU;
+        const float* wk = staged(rr + L.wv, w_in + v0 * NX) + s * NX;
+        float acc = -wk[i];                         // dlam = dx W' + du M' - w
+#pragma unroll
+        for (int j = 0; j < NX; ++j) acc += xn[j] * Wk[i * NX + j];
+        acc += du0 * Mk[i * NU + 0] + du1 * Mk[i * NU + 1];
+        dlam_out[v * NX + i] = acc;
+      }
     }
-#pragma unroll
-    for (int i = 0; i < NX; ++i) {               // dlam = dx W' + du M' - w
-      float acc = -w_in[v * NX + i];
-#pragma unroll
-      for (int j = 0; j < NX; ++j) acc += xn[j] * Wk[i * NX + j];
-      acc += du[0] * M[i * NU + 0] + du[1] * M[i * NU + 1];
-      dlam_out[v * NX + i] = acc;
-    }
-#pragma unroll
-    for (int i = 0; i < NX; ++i) {
-      dx[i] = xn[i];
-      dx_out[v * NX + i] = xn[i];
-    }
-#pragma unroll
-    for (int u = 0; u < NU; ++u) du_out[v * NU + u] = du[u];
+    __syncthreads();
   }
 }
 
@@ -503,16 +886,34 @@ extern "C" int riccati_assemble_factor_f32(
     float* Huinv, float* G, float* W, float* Mq, float* Lx, float* Lu,
     float* Hss, int batch, int N, int r, int nx, int ns, void* stream) {
   if (batch <= 0 || N <= 0 || r <= 0) return (int)cudaErrorInvalidValue;
+  if (ns != 1 && ns != 4) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-#define LAUNCH_AF(NSV)                                                    \
-  DISPATCH_NX(nx, assemble_factor_kernel<NX, NSV>                         \
-                      <<<blocks_for(batch), THREADS, 0, st>>>(            \
-                          C, D, Ws, Dr, qbd, rbd, Ad, Bd, Huinv, G, W, Mq, \
-                          Lx, Lu, Hss, batch, N, r))
-  switch (ns) {
-    case 1: LAUNCH_AF(1); break;
-    case 4: LAUNCH_AF(4); break;
-    default: return (int)cudaErrorInvalidValue;
+  // a chunk: as many whole stages (rows, A, B) as a staging buffer holds
+  // and the producers' item slots cover, or a run of one long stage's rows
+  const int m = nx + NU + ns, E = m * (m + 1) / 2;
+  const int per_stage = r * (m + 1) + nx * nx + nx * NU;
+  int ch = 1, rc = r;
+  if (per_stage <= AF_STAGE_FLOATS)
+    ch = max(1, min(min(N, AF_STAGE_FLOATS / per_stage),
+                    AF_ITEMS * AF_PRODUCERS / E));
+  else
+    rc = max(1, (AF_STAGE_FLOATS - nx * nx - nx * NU) / (m + 1));
+  const size_t smem = sizeof(float) * AfLayout(ch, ch * rc, nx, ns).total;
+#define LAUNCH_AF(NSV)                                                     \
+  DISPATCH_NX(nx, {                                                        \
+    auto kern = assemble_factor_kernel<NX, NSV>;                           \
+    if (smem > 48 * 1024)                                                  \
+      cudaFuncSetAttribute(kern,                                           \
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,    \
+                           (int)smem);                                     \
+    kern<<<batch, AF_THREADS, smem, st>>>(C, D, Ws, Dr, qbd, rbd, Ad, Bd,  \
+                                          Huinv, G, W, Mq, Lx, Lu, Hss, N, \
+                                          r, ch, rc);                      \
+  })
+  if (ns == 1) {
+    LAUNCH_AF(1);
+  } else {
+    LAUNCH_AF(4);
   }
 #undef LAUNCH_AF
   return (int)cudaGetLastError();
@@ -543,9 +944,20 @@ extern "C" int riccati_apply_fwd_f32(const float* Huinv, const float* G,
                                      int nx, void* stream) {
   if (batch <= 0 || K <= 0 || N <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  DISPATCH_NX(nx, apply_fwd_kernel<NX>
-                      <<<blocks_for(batch * K), THREADS, 0, st>>>(
-                          Huinv, G, W, Ad, Bd, M, re, h, w, du, dx, dlam,
-                          batch, K, N));
+  // one instance and KB rhs a block
+  const int kb = min(K, max(1, FWD_MAX_THREADS / nx));
+  const int threads = (kb * nx + 31) / 32 * 32;
+  const int per_stage = 2 * nx * nx + 4 * nx + NU * NU + kb * (2 * nx + NU);
+  const int ch = max(1, min(N, FWD_STAGE_FLOATS / per_stage));
+  const size_t smem = sizeof(float) * FwdLayout(ch, kb, nx).total;
+  const dim3 grid(batch, (K + kb - 1) / kb);
+  DISPATCH_NX(nx, {
+    auto kern = apply_fwd_kernel<NX>;
+    if (smem > 48 * 1024)
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem);
+    kern<<<grid, threads, smem, st>>>(Huinv, G, W, Ad, Bd, M, re, h, w, du,
+                                      dx, dlam, K, N, kb, ch);
+  });
   return (int)cudaGetLastError();
 }

@@ -5,7 +5,10 @@ a plain C-ABI shared library under ``fsae_mpc_tpu_torch/build/`` (listed in
 ``.gitignore``).  The file name carries a hash of the source and the flags,
 so an edit rebuilds; ``nvcc``'s ``-Xptxas -v`` report (registers, spills)
 is kept beside each library as ``.log``.  :func:`build` starts one ``nvcc``
-per missing source, all together.  Nothing here runs at import.
+per missing library, all together.  A source may also be built with extra
+preprocessor definitions (``chip_smoke.py`` builds ``riccati.cu`` with
+``RICCATI_PLANT=n``, its planted faults) into a library of its own.
+Nothing here runs at import.
 
 The kernel modules (``riccati``, ``condense``, ``chol``) each hold a
 :class:`Library` with the C signatures of their entry points and one
@@ -35,22 +38,29 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 
-def library_path(source: str) -> str:
-    """Where the build of ``csrc/<source>`` goes."""
+def _flags(defines=()) -> list[str]:
+    return NVCC_FLAGS + [f"-D{d}" for d in defines]
+
+
+def library_path(source: str, defines=()) -> str:
+    """Where the build of ``csrc/<source>`` (with ``defines``) goes."""
     with open(os.path.join(CSRC_DIR, source), "rb") as f:
         digest = hashlib.sha256(
-            f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+            f.read() + " ".join(_flags(defines)).encode()).hexdigest()[:16]
     stem = os.path.splitext(source)[0]
     return os.path.join(BUILD_DIR, f"lib{stem}_{digest}.so")
 
 
-def build(*sources: str) -> list[str]:
-    """Compile each of ``sources`` (names under ``csrc/``; default: all)
-    whose build is missing, one ``nvcc`` process per source, started
-    together.  Returns the libraries' paths in the order given."""
-    sources = sources or SOURCES
-    outs = [library_path(s) for s in sources]
-    todo = [(s, o) for s, o in zip(sources, outs) if not os.path.exists(o)]
+def build(*jobs) -> list[str]:
+    """Compile each of ``jobs`` whose build is missing, one ``nvcc``
+    process per job, started together.  A job is a source name under
+    ``csrc/`` or a ``(source, defines)`` pair; default: every source.
+    Returns the libraries' paths in the order given."""
+    jobs = [(j, ()) if isinstance(j, str) else (j[0], tuple(j[1]))
+            for j in (jobs or SOURCES)]
+    outs = [library_path(s, d) for s, d in jobs]
+    todo = [(s, d, o) for (s, d), o in zip(jobs, outs)
+            if not os.path.exists(o)]
     if not todo:
         return outs
     nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
@@ -59,10 +69,10 @@ def build(*sources: str) -> list[str]:
                            "machine with the CUDA toolkit")
     os.makedirs(BUILD_DIR, exist_ok=True)
     procs = []
-    for src, out in todo:
+    for src, defines, out in todo:
         tmp = out + f".tmp{os.getpid()}"
         procs.append((out, tmp, subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC_DIR, src)],
+            [nvcc, *_flags(defines), "-o", tmp, os.path.join(CSRC_DIR, src)],
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
     failed = []
     for out, tmp, proc in procs:
@@ -93,18 +103,20 @@ class Library:
     """The shared library of one source, loaded at its first launch.
 
     ``signatures`` maps each C symbol to its ``ctypes`` argument types
-    (every entry point returns a ``cudaError_t`` as ``int``)."""
+    (every entry point returns a ``cudaError_t`` as ``int``); ``defines``
+    are extra preprocessor definitions of its build."""
 
-    def __init__(self, source: str, signatures: dict):
+    def __init__(self, source: str, signatures: dict, defines=()):
         self.source = source
         self.signatures = signatures
+        self.defines = tuple(defines)
         self._lib = None
         self._lock = threading.Lock()
 
     def _load(self):
         with self._lock:
             if self._lib is None:
-                lib = ctypes.CDLL(build(self.source)[0])
+                lib = ctypes.CDLL(build((self.source, self.defines))[0])
                 for sym, argtypes in self.signatures.items():
                     fn = getattr(lib, sym)
                     fn.argtypes = argtypes

@@ -25,6 +25,17 @@ from fsae_mpc_tpu.mpc import constraints as jcons
 from fsae_mpc_tpu_torch.config import MPC_F32, VehicleParams
 from fsae_mpc_tpu_torch.mpc import constraints as cons
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The shapes here are tiny: one intra-op thread keeps this file's
+    PyTorch work off the cores that the suite's other files share."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 N = 8
 B = 2
 F64 = torch.float64

@@ -35,6 +35,17 @@ from fsae_mpc_tpu_torch.ops import condense as tcondense
 from fsae_mpc_tpu_torch.ops.kernels import chol as kchol
 from fsae_mpc_tpu_torch.ops.kernels import condense as kcondense
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The shapes here are tiny: one intra-op thread keeps this file's
+    PyTorch work off the cores that the suite's other files share."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 B, N, NU, NCHOL = 3, 8, 2, 12
 TOL = 1e-10
 F64 = torch.float64

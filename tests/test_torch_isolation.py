@@ -40,6 +40,17 @@ from fsae_mpc_tpu_torch.ops.kernels import condense as kcondense
 from fsae_mpc_tpu_torch.ops.kernels import riccati as kr
 from fsae_mpc_tpu_torch.track import load_track
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The shapes here are tiny: one intra-op thread keeps this file's
+    PyTorch work off the cores that the suite's other files share."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 F64 = torch.float64
 B, N, NX, NU = 3, 5, 7, 2
 

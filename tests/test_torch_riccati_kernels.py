@@ -28,6 +28,17 @@ from fsae_mpc_tpu.ops.pallas import riccati as jpallas
 
 from fsae_mpc_tpu_torch.ops.kernels import riccati as kr
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The shapes here are tiny: one intra-op thread keeps this file's
+    PyTorch work off the cores that the suite's other files share."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 B, N, NX, NU, R, NS, K = 3, 5, 7, 2, 20, 4, 5
 TOL = 1e-10
 FAST_COMPILE = {"xla_backend_optimization_level": 0,
