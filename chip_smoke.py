@@ -8,9 +8,10 @@ Run from the root of a checkout, on a machine with one CUDA card:
 Phases (any failure exits non-zero before the result lines):
 
   1. build    -- compile ``fsae_mpc_tpu_torch/csrc/{riccati,condense,
-                 chol}.cu`` with nvcc, and ``riccati.cu`` once more for
-                 each planted fault (``-DRICCATI_PLANT=n``), one process
-                 per library, all started together, into
+                 chol}.cu`` with nvcc, ``riccati.cu`` once more for each
+                 of its planted faults (``-DRICCATI_PLANT=n``) and
+                 ``chol.cu`` for each of its own (``-DCHOL_PLANT=n``), one
+                 process per library, all started together, into
                  ``fsae_mpc_tpu_torch/build/``.
   2. kernels  -- each of the seven kernels against its plain PyTorch
                  version on the same CUDA tensors, in f32:
@@ -22,17 +23,23 @@ Phases (any failure exits non-zero before the result lines):
                  solve at n=84 and n=81, B=1024 and B=37, on SPD matrices
                  whose diagonal spans the IPM's range (up to its f32
                  complementarity cap, 1e7), normwise and entry by entry
-                 (componentwise backward error, which planted faults
-                 must fail).  assemble_factor and apply_fwd also per
-                 instance and output block, and their planted faults (a
-                 row dropped, a chunk staged one stage late, the dx carry
-                 not advanced, two rhs swapped) must fail those checks.
-                 One indefinite instance among 37 must come out NaN with
-                 its neighbours finite (Riccati 2x2 pivot; dense KKT
-                 matrix); so must one instance whose Huinv holds a NaN
-                 in apply_fwd.  Kernel times (CUDA events around a CUDA
-                 graph of 20 launches, so host gaps do not count), plain
-                 and library times, and each kernel's bound.
+                 (componentwise backward error, also of the solve on the
+                 factor kernel's L; faults built on the data and the
+                 factor's planted fault, a trailing-update tile skipped,
+                 must fail it).  assemble_factor, apply_bwd and apply_fwd
+                 also per instance and output block, and their planted
+                 faults (a row dropped, a chunk staged one stage late, the
+                 p or dx carry not advanced, two rhs swapped) must fail
+                 those checks.  One indefinite instance among 37 must come
+                 out NaN with its neighbours finite (Riccati 2x2 pivot);
+                 two indefinite dense KKT matrices must come out NaN from
+                 their first failing pivot on and finite before it, which
+                 the factor's planted pivot clamp must fail; one instance
+                 whose Huinv holds a NaN must come out NaN in apply_bwd and
+                 apply_fwd with its neighbours finite.  Kernel times (CUDA
+                 events around a CUDA graph of 20 launches, so host gaps
+                 do not count), plain and library times, and each
+                 kernel's bound.
   3. main paths, each driven with every launch count set to 0 just
                  before it and read just after:
                  (a) ``ltv_mpc_dynamic(backend="riccati")`` and
@@ -97,11 +104,20 @@ REC_BATCH, REC_TICKS = 32, 3
 # that has gone wrong, not the solver's f32 floor.
 ACC_GUARD = {"F32_PRODUCTION": (1e-1, 1e-2)}
 # the faults compiled into riccati.cu under -DRICCATI_PLANT=n, each of
-# which the assemble_factor (1, 2) or apply_fwd (3, 4) checks must fail
+# which the assemble_factor (1, 2), apply_fwd (3, 4) or apply_bwd (5, 6)
+# checks must fail
 PLANTS = {1: "assemble_factor drops row 3 of stage 17",
           2: "assemble_factor stages its second chunk one stage late",
           3: "apply_fwd does not advance the dx carry at stage 17",
-          4: "apply_fwd swaps rhs 0 and 1 of instance 5"}
+          4: "apply_fwd swaps rhs 0 and 1 of instance 5",
+          5: "apply_bwd does not advance the p carry at stage 17",
+          6: "apply_bwd swaps rhs 0 and 1 of instance 5"}
+PLANT_KERNEL = {1: "assemble_factor", 2: "assemble_factor", 3: "apply_fwd",
+                4: "apply_fwd", 5: "apply_bwd", 6: "apply_bwd"}
+# the faults compiled into chol.cu under -DCHOL_PLANT=n: (1) must fail the
+# entrywise check, (2) the NaN-poison check
+CHOL_PLANTS = {1: "chol_factor skips one trailing-update tile in panel 2",
+               2: "chol_factor clamps a non-positive pivot to 1e-6"}
 
 
 def log(msg: str) -> None:
@@ -256,22 +272,23 @@ def compare(name, outs, refs, results, tag, per_instance=False):
               f"{pi:.3e} > {KERNEL_RTOL:.0e}")
 
 
-def planted_faults(plants, asm, fwd, dims, tag):
-    """Launch each planted-fault build of assemble_factor and apply_fwd on
-    the case's inputs; each must fail the per-instance check against the
-    plain outputs.  ``asm``/``fwd``: (inputs, plain
+def planted_faults(plants, cases, dims, tag):
+    """Launch each planted-fault build of assemble_factor, apply_fwd and
+    apply_bwd on the case's inputs; each must fail the per-instance check
+    against the plain outputs.  ``cases``: kernel name -> (inputs, plain
     outputs).  These launches count on no kernel's launch count."""
     import torch
     from fsae_mpc_tpu_torch.ops.kernels.build import Kernel
     Bsz, N, r, nx, ns, K = dims
     errs = {}
     for n, lib in plants.items():
-        if n == 4 and K < 2:
+        if n in (4, 6) and K < 2:
             continue                       # one rhs: nothing to swap
-        ins, refs = asm if n in (1, 2) else fwd
-        sym = ("riccati_assemble_factor_f32" if n in (1, 2)
-               else "riccati_apply_fwd_f32")
-        ints = (Bsz, N, r, nx, ns) if n in (1, 2) else (Bsz, K, N, nx)
+        name = PLANT_KERNEL[n]
+        ins, refs = cases[name]
+        sym = f"riccati_{name}_f32"
+        ints = (Bsz, N, r, nx, ns) if name == "assemble_factor" \
+            else (Bsz, K, N, nx)
         outs = tuple(torch.empty_like(t) for t in refs)
         lib.launch(Kernel(f"planted {n}", sym, ""), *ins, *outs, *ints)
         torch.cuda.synchronize()
@@ -344,11 +361,13 @@ def kernel_phase(kr, device, card, plants):
             compare("factor", fac_k, fac_p, results, tag)
             compare("assemble_factor", asm_k, asm_p, results, tag,
                     per_instance=True)
-        compare("apply_bwd", hw_k, hw_p, results, tag)
+        compare("apply_bwd", hw_k, hw_p, results, tag, per_instance=True)
         compare("apply_fwd", fwd_k, fwd_p, results, tag, per_instance=True)
-        planted_faults(plants, (asm_args, asm_p),
-                       (app_args + (x["re"],) + tuple(hw_p), fwd_p),
-                       (Bsz, N_MAIN, R, nx, ns, K), tag)
+        planted_faults(plants, {
+            "assemble_factor": (asm_args, asm_p),
+            "apply_bwd": (app_args + rhs, hw_p),
+            "apply_fwd": (app_args + (x["re"],) + tuple(hw_p), fwd_p)},
+            (Bsz, N_MAIN, R, nx, ns, K), tag)
         if Bsz == B_MAIN:
             times = {
                 "factor": (lambda: kr.factor_cuda(*fac_args),
@@ -404,7 +423,8 @@ def kernel_phase(kr, device, card, plants):
             f"other 36 finite: {clean}")
         check(poisoned and clean, f"{name}: NaN poison not isolated")
 
-    # apply_fwd: instance 5 of 37 carries a NaN Huinv at stage 17
+    # apply_bwd and apply_fwd: instance 5 of 37 carries a NaN Huinv at
+    # stage 17
     for K in (NS + 1, 1):
         x = kernel_inputs(37, N_MAIN, K, SEED + 98 + K, device)
         fac = kr.assemble_factor_ref(x["C"], x["D"], x["Ws"], x["Dr"],
@@ -413,14 +433,18 @@ def kernel_phase(kr, device, card, plants):
         hw = kr.apply_bwd_ref(*args, x["rx"], x["ru"], x["re"])
         Huinv = fac[0].clone()
         Huinv[5, 17] = float("nan")
-        out = kr.apply_fwd_cuda(Huinv, *args[1:], x["re"], *hw)
         others = torch.ones(37, dtype=torch.bool, device=device)
         others[5] = False
-        poisoned = all(bool(torch.isnan(o[5]).any()) for o in out)
-        clean = all(bool(torch.isfinite(o[others]).all()) for o in out)
-        log(f"kernel {'apply_fwd':16s} [NaN Huinv, K={K}] instance 5 NaN: "
-            f"{poisoned}, other 36 finite: {clean}")
-        check(poisoned and clean, f"apply_fwd K={K}: NaN not isolated")
+        for name, out in (
+                ("apply_bwd", kr.apply_bwd_cuda(Huinv, *args[1:], x["rx"],
+                                                x["ru"], x["re"])),
+                ("apply_fwd", kr.apply_fwd_cuda(Huinv, *args[1:], x["re"],
+                                                *hw))):
+            poisoned = all(bool(torch.isnan(o[5]).any()) for o in out)
+            clean = all(bool(torch.isfinite(o[others]).all()) for o in out)
+            log(f"kernel {name:16s} [NaN Huinv, K={K}] instance 5 NaN: "
+                f"{poisoned}, other 36 finite: {clean}")
+            check(poisoned and clean, f"{name} K={K}: NaN not isolated")
     return results
 
 
@@ -440,18 +464,12 @@ def spd_inputs(Bsz, n, seed, device):
             torch.tensor(b, dtype=torch.float32, device=device))
 
 
-def chol_entrywise(K, b, L_k, L_p, x_k, x_p, tag):
-    """K6 and K7 against their plain versions entry by entry, each entry at
-    its own scale.  K's diagonal spans 1e-1..1e7, so the normwise check
-    (max |k - p| / max |p|) allows every entry of L an error near 0.3 and
-    every entry of x one near 1e-4 max|x|: far more than the sub-diagonal
-    of L and the x of the heavy rows hold.  Here, in f64, a factor L is held
-    by L L' against L_p L_p', relative to |L_p||L_p'| per entry, and a
+def chol_backward(L_p, x_p):
+    """The componentwise backward errors of a factor and of a solution,
+    held against the plain factor L_p and solution x_p, in f64: a factor
+    L by L L' against L_p L_p', relative to |L_p||L_p'| per entry; a
     solution x by L_p L_p' (x - x_p), relative to |L_p||L_p'||x_p| per
-    row: the componentwise backward errors of Cholesky and of the two
-    triangular solves, which are below ~(3n+1) u for any right f32 kernel
-    (u = 6e-8; Higham, Accuracy and Stability of Numerical Algorithms,
-    Thms 10.3-10.4).  Planted faults on the same data must fail it."""
+    row.  Returns the two functions."""
     import torch
     Lp = L_p.double()
     LL, absLL = torch.bmm(Lp, Lp.mT), torch.bmm(Lp.abs(), Lp.abs().mT)
@@ -465,8 +483,27 @@ def chol_entrywise(K, b, L_k, L_p, x_k, x_p, tag):
         den = torch.bmm(absLL, x_p.double().abs()[..., None])
         return float((torch.bmm(LL, e).abs() / den).max())
 
+    return fac, sol
+
+
+def chol_entrywise(K, b, L_k, L_p, x_k, x_p, x_kk, tag, planted=None):
+    """K6 and K7 against their plain versions entry by entry, each entry at
+    its own scale.  K's diagonal spans 1e-1..1e7, so the normwise check
+    (max |k - p| / max |p|) allows every entry of L an error near 0.3 and
+    every entry of x one near 1e-4 max|x|: far more than the sub-diagonal
+    of L and the x of the heavy rows hold.  Here the componentwise backward
+    errors of Cholesky and of the two triangular solves
+    (:func:`chol_backward`), which are below ~(3n+1) u for any right f32
+    kernel (u = 6e-8; Higham, Accuracy and Stability of Numerical
+    Algorithms, Thms 10.3-10.4), hold K6's L, K7's x on the plain L, and
+    K7's ``x_kk`` on K6's L.  Faults built on the same data, and the
+    factors of the planted builds of K6 (``planted``: fault -> L), must
+    fail it."""
+    import torch
+    fac, sol = chol_backward(L_p, x_p)
     Kd = torch.diagonal(K, dim1=-2, dim2=-1)
-    errs = {"chol_factor": fac(L_k), "chol_solve": sol(x_k)}
+    errs = {"chol_factor": fac(L_k), "chol_solve": sol(x_k),
+            "chol_solve on K6's L": sol(x_kk)}
     faults = {
         "factor, sub-diagonal zeroed": fac(torch.diag_embed(
             torch.diagonal(L_p, dim1=-2, dim2=-1))),
@@ -475,6 +512,8 @@ def chol_entrywise(K, b, L_k, L_p, x_k, x_p, tag):
         "solve, off-diagonal terms dropped where K_ii >= 1e4": sol(
             torch.where(Kd >= 1e4, b / Kd, x_p)),
     }
+    faults.update({f"planted {n} ({CHOL_PLANTS[n]})": fac(L)
+                   for n, L in (planted or {}).items()})
     for name, err in errs.items():
         log(f"kernel {name:16s} [{tag}] entrywise backward err {err:.3e} "
             f"(tol {KERNEL_RTOL:.0e})")
@@ -486,9 +525,57 @@ def chol_entrywise(K, b, L_k, L_p, x_k, x_p, tag):
           f"chol [{tag}]: a planted fault passes the entrywise check")
 
 
-def dense_kernel_phase(device, card):
+def chol_planted(lib, K):
+    """K6's planted build on K (a launch that no kernel's count
+    records)."""
+    import torch
+    from fsae_mpc_tpu_torch.ops.kernels.build import Kernel
+    L = torch.empty_like(K)
+    lib.launch(Kernel("planted", "chol_factor_f32", ""), K, L, K.shape[0],
+               K.shape[-1])
+    return L
+
+
+def chol_poison_inputs(device):
+    """37 SPD matrices (n=84) of which two are indefinite: instance 5 from
+    its first pivot on (K - 1e8 I), instance 9 from pivot 40."""
+    import torch
+    n = N_DENSE[0]
+    K, b = spd_inputs(37, n, SEED + 99, device)
+    K[5] -= 1e8 * torch.eye(n, device=device)
+    K[9, 40, 40] = -1e9
+    return K, b
+
+
+def chol_poisoned(K, L, x):
+    """(exact, clean) for the poison case: ``exact`` when each indefinite
+    instance's L is finite in the columns before its first non-positive
+    pivot (as ``cholesky_ex`` reports it on the same K) and NaN in every
+    entry of the lower triangle from that column on, and its x is all
+    NaN; ``clean`` when every other instance is finite."""
+    import torch
+    info = torch.linalg.cholesky_ex(K.double())[1]
+    n = K.shape[-1]
+    col = torch.arange(n, device=K.device)
+    lower = col[:, None] >= col[None, :]
+    exact, clean = True, True
+    for i in range(K.shape[0]):
+        f = int(info[i]) - 1
+        if f < 0:
+            clean &= bool(torch.isfinite(L[i]).all()) and bool(
+                torch.isfinite(x[i]).all())
+            continue
+        after = lower & (col[None, :] >= f)
+        exact &= (bool(torch.isfinite(L[i][:, :f]).all())
+                  and bool(torch.isnan(L[i][after]).all())
+                  and bool(torch.isnan(x[i]).all()))
+    return exact, clean
+
+
+def dense_kernel_phase(device, card, chol_plants):
     """Condense (K5) and the dense Cholesky factor and solve (K6, K7)
-    against their plain versions."""
+    against their plain versions; ``chol_plants``: fault -> the library
+    of K6's planted build."""
     import numpy as np
     import torch
     from fsae_mpc_tpu_torch.ops.kernels import chol as kc
@@ -530,10 +617,12 @@ def dense_kernel_phase(device, card):
             # its own plain version on the same inputs
             x_k = kc.solve_cuda(L_p, b)
             x_p = kc.solve_ref(L_p, b)
+            x_kk = kc.solve_cuda(L_k, b)
+            planted = {1: chol_planted(chol_plants[1], K)}
             torch.cuda.synchronize()
             compare("chol_factor", (L_k,), (L_p,), results, tag)
             compare("chol_solve", (x_k,), (x_p,), results, tag)
-            chol_entrywise(K, b, L_k, L_p, x_k, x_p, tag)
+            chol_entrywise(K, b, L_k, L_p, x_k, x_p, x_kk, tag, planted)
             if Bsz != B_MAIN or n != N_DENSE[0]:
                 continue
             tri = n * (n + 1) // 2
@@ -563,19 +652,21 @@ def dense_kernel_phase(device, card):
                 results[name].update(ms=ms, plain_ms=pms, library_ms=lms,
                                      bound_ms=bms, bound_by=by)
 
-    # NaN poison: instance 5 of 37 is indefinite
-    K, b = spd_inputs(37, N_DENSE[0], SEED + 99, device)
-    K[5] -= 1e8 * torch.eye(N_DENSE[0], device=device)
+    # NaN poison: instances 5 and 9 of 37 are indefinite; planted fault 2
+    # must fail the same check
+    K, b = chol_poison_inputs(device)
     L = kc.factor_cuda(K)
-    x = kc.solve_cuda(L, b)
-    others = torch.ones(37, dtype=torch.bool, device=device)
-    others[5] = False
-    poisoned = bool(torch.isnan(L[5]).any()) and bool(torch.isnan(x[5]).all())
-    clean = (bool(torch.isfinite(L[others]).all())
-             and bool(torch.isfinite(x[others]).all()))
-    log(f"kernel {'chol_factor/solve':16s} [NaN poison] instance 5 NaN: "
-        f"{poisoned}, other 36 finite: {clean}")
-    check(poisoned and clean, "chol: NaN poison not isolated")
+    exact, clean = chol_poisoned(K, L, kc.solve_cuda(L, b))
+    log(f"kernel {'chol_factor/solve':16s} [NaN poison] instances 5, 9 NaN "
+        f"from their first failing pivot on: {exact}, other 35 finite: "
+        f"{clean}")
+    check(exact and clean, "chol: NaN poison not isolated")
+    L = chol_planted(chol_plants[2], K)
+    exact, clean = chol_poisoned(K, L, kc.solve_cuda(L, b))
+    log(f"kernel {'chol planted':16s} [NaN poison] 2 ({CHOL_PLANTS[2]}): "
+        f"{'fails' if not (exact and clean) else 'PASSES'} the check")
+    check(not (exact and clean), "chol: planted fault 2 passes the NaN-poison"
+          " check")
     return results
 
 
@@ -974,6 +1065,7 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     from fsae_mpc_tpu_torch.config import MPC_F32, VehicleParams
     from fsae_mpc_tpu_torch.ops.kernels import build as kbuild
+    from fsae_mpc_tpu_torch.ops.kernels import chol as kc
     from fsae_mpc_tpu_torch.ops.kernels import riccati as kr
     from fsae_mpc_tpu_torch.track import load_track
 
@@ -985,13 +1077,17 @@ def main() -> int:
     try:
         t0 = time.perf_counter()
         plant_defs = {n: (f"RICCATI_PLANT={n}",) for n in PLANTS}
+        chol_defs = {n: (f"CHOL_PLANT={n}",) for n in CHOL_PLANTS}
         libs = kbuild.build(*kbuild.SOURCES, *(
-            ("riccati.cu", d) for d in plant_defs.values()))
+            ("riccati.cu", d) for d in plant_defs.values()), *(
+            ("chol.cu", d) for d in chol_defs.values()))
         log(f"build: {[os.path.relpath(lib, ROOT) for lib in libs]} in "
             f"{time.perf_counter() - t0:.1f} s (one nvcc per library, "
             "in parallel)")
         plants = {n: kbuild.Library("riccati.cu", kr._LIB.signatures, d)
                   for n, d in plant_defs.items()}
+        chol_plants = {n: kbuild.Library("chol.cu", kc._LIB.signatures, d)
+                       for n, d in chol_defs.items()}
         for lib in libs[:len(kbuild.SOURCES)]:
             with open(lib[:-3] + ".log") as f:
                 for line in f:
@@ -999,7 +1095,7 @@ def main() -> int:
                             or "Compiling entry" in line):
                         log("ptxas: " + line.strip())
         kres = kernel_phase(kr, device, card, plants)
-        kres.update(dense_kernel_phase(device, card))
+        kres.update(dense_kernel_phase(device, card, chol_plants))
         track, _ = load_track(os.path.join(ROOT, "data", "fsg2019.csv"),
                               dtype=torch.float32, device=device)
         model = (track, VehicleParams(), MPC_F32)

@@ -17,8 +17,8 @@
 // Design.  On the TPU the batch rode the 128 vector lanes and the stage
 // loop was the sequential grid axis, with the Riccati carry in VMEM
 // scratch.  Here the batch-first layout of the Python API is kept, so one
-// instance's data is contiguous, and the two sweeps that carry most of
-// the work are block-cooperative per instance:
+// instance's data is contiguous, and the three sweeps that every IPM
+// iteration runs are block-cooperative per instance:
 //
 //   K1 assemble_factor: one block of 128 threads per instance, in
 //     chunks of whole stages (or, for a long stage, of its rows) from the
@@ -32,6 +32,16 @@
 //     runs).  Meanwhile warp 0 runs the sequential recursion over chunk
 //     c - 1 from the other tile, its lanes owning entries of P, W, WA, V
 //     and G.  One block barrier a chunk.
+//   K2 apply_bwd: one block per instance (and per KB right-hand sides),
+//     a segment of 8 lanes (16 at nx = 9) per rhs, lane j owning entry j
+//     of the p carry.  The factor blocks and the rhs' rx, ru, re are
+//     staged into a ring of two shared-memory buffers, a chunk of stages
+//     at a time, from the last stage to the first, two chunks in flight.
+//     Everything off the carry chain (Kg = Hu^-1 G once per instance,
+//     Wd = re W' and re M - ru per rhs, A' and B's columns) is computed
+//     by all threads per chunk into a record the chain reads with vector
+//     loads; the chain exchanges its carry by warp shuffles, with no
+//     barrier per stage.  Two block barriers a chunk.
 //   K3 apply_fwd: one block per instance (and per KB right-hand sides);
 //     a thread owns one (rhs, row) entry of the dx carry.  The factor
 //     blocks and the rhs' re, h, w are staged into a ring of three
@@ -40,25 +50,24 @@
 //     per rhs.  The carry passes through shared memory (two buffers, one
 //     barrier per stage).
 //
-// K2 and K4 keep the first design: one thread owns one instance (K2: one
-// instance and one right-hand side) and runs the stage loop with the
-// carry and the stage blocks in registers (nx <= 9, nu == 2, ns <= 4,
-// templated so every loop unrolls); their loads are not coalesced.
-// Instances never share arithmetic in any sweep, so a NaN-poisoned
-// instance cannot reach its neighbours.
+// K4 keeps the first design: one thread owns one instance and runs the
+// stage loop with the carry and the stage blocks in registers (nx <= 9,
+// nu == 2, ns <= 4, templated so every loop unrolls); its loads are not
+// coalesced.  Instances never share arithmetic in any sweep, so a
+// NaN-poisoned instance cannot reach its neighbours.
 //
 // What bounds it.  Each sweep moves its inputs once and its outputs once
-// (K1 ~80 KB an instance at N=40, nx=7, r=20, ns=4; K3 ~40 KB at K=5),
-// ~24 us and ~15 us for B=1024 at the card's memory rate; the arithmetic
-// is tiny (~2 kFLOP per stage and rhs).  What holds them above that is
-// latency: each stage of the recursions is a chain of dependent
-// shared-memory dot products and barriers, and the staging needs several
-// chunks in flight per SM to cover device-memory latency.  Hence the
-// rings, the chunk sizes (AF_STAGE_FLOATS, FWD_STAGE_FLOATS) and
-// eight resident K1 blocks per SM (registers capped at 64); at B=1024
-// K1 runs in one wave.
+// (K1 ~80 KB an instance at N=40, nx=7, r=20, ns=4; K2 ~43 KB and K3
+// ~40 KB at K=5), ~24 us, ~13 us and ~15 us for B=1024 at the card's
+// memory rate; the arithmetic is tiny (~2 kFLOP per stage and rhs).  What
+// holds them above that is latency: each stage of the recursions is a
+// chain of dependent dot products (and, in K1 and K3, barriers), and the
+// staging needs several chunks in flight per SM to cover device-memory
+// latency.  Hence the rings, the chunk sizes (AF_STAGE_FLOATS,
+// BWD_SMEM_FLOATS, FWD_STAGE_FLOATS) and eight resident blocks per SM (K1:
+// registers capped at 64); at B=1024 the sweeps run in one wave.
 
-// Planted faults.  Built with -DRICCATI_PLANT=n (n = 1..4), K1 or K3
+// Planted faults.  Built with -DRICCATI_PLANT=n (n = 1..6), K1, K2 or K3
 // carries one deliberate fault (see PLANT below); chip_smoke.py builds
 // those copies beside the real one and requires its comparisons to fail
 // them.  Without the macro the fault sites compile to nothing.
@@ -83,12 +92,14 @@
 //   2  K1 stages its second chunk one stage late
 //   3  K3 does not advance the dx carry at stage 17
 //   4  K3 swaps right-hand sides 0 and 1 of instance 5
+//   5  K2 does not advance the p carry at stage 17
+//   6  K2 swaps right-hand sides 0 and 1 of instance 5
 #define PLANT(n) (RICCATI_PLANT == (n))
 
 namespace {
 
 constexpr int NU = 2;
-constexpr int THREADS = 64;
+constexpr int THREADS = 64;   // K4: instances a block
 
 __device__ __forceinline__ float nan_f() { return __int_as_float(0x7fc00000); }
 
@@ -639,72 +650,259 @@ assemble_factor_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// K2: backward linear-term sweep (Kg = Hu^-1 G folded in)
+// K2: backward linear-term sweep, one instance and KB right-hand sides a block
 // ---------------------------------------------------------------------------
 //
-// Thread t = b * K + kk owns instance b, right-hand side kk.  rx/re/w are
-// (B, K, N, nx), ru/h (B, K, N, nu); the factor blocks are (B, N, ...).
+// The recursion, per rhs, from the last stage to the first (p = 0 past it):
+//   w = rx + p,  h = (Wd - w) B + (re M - ru),  p <- h Kg + (w - Wd) A,
+// with Kg = Hu^-1 G and Wd = re W'.  Only w, h and p hang on the carry, so
+// each chunk of stages goes in two phases:
+//   precompute  all threads, from the chunk's staged blocks, an item a row
+//               of a stage: Kg (once per instance), A' and the columns of
+//               B, and Wd and re M - ru for every rhs (each factor row
+//               read once), into a record laid out for the chain's vector
+//               loads;
+//   chain       a segment of SEG lanes per rhs, lane j owning p_j; the
+//               lanes' d = Wd - w go round the segment by __shfl_sync, so a
+//               stage needs no barrier, and the next stage's record loads
+//               into a second set of registers while this one runs.
+// The staging ring holds two chunks: chunk c + 2 is issued into chunk c's
+// buffer once c's precompute has read it, so two chunks are in flight
+// while the chain runs.  Two block barriers a chunk.  rhs tensors are
+// (B, K, N, n), the factor blocks (B, N, ...).
+
+constexpr int BWD_WARPS = 4;             // most warps a block
+constexpr int BWD_AHEAD = 2;             // chunks in flight past the one in use
+constexpr int BWD_SMEM_FLOATS = 6912;    // 27 KB a block: 8 blocks an SM
+
+__host__ __device__ constexpr int bwd_seg(int nx) { return nx <= 8 ? 8 : 16; }
+__host__ __device__ constexpr int pad4(int n) { return (n + 3) & ~3; }
+
+// Shared-memory layout of K2 (offsets in floats, 16-byte aligned): the
+// ring of BWD_AHEAD staging buffers, each the six factor regions then KB
+// rhs' rx, ru, re regions, all ch stages long; then the chain's record:
+// A' (nx rows padded to nxp), B's two columns (padded), Kg as (Kg0_j, Kg1_j)
+// pairs, and per rhs the (rx_j, Wd_j) pairs and (re M - ru) pairs.
+struct BwdLayout {
+  int hi, g, w, a, b, m, fac, rx, ru, re, rhs, buf;
+  int at, bc, kg, rw, cv, rec, total;
+  __host__ __device__ BwdLayout(int ch, int kb, int nx) {
+    const int nxp = pad4(nx);
+    hi = 0;
+    g = hi + region(ch * NU * NU);
+    w = g + region(ch * NU * nx);
+    a = w + region(ch * nx * nx);
+    b = a + region(ch * nx * nx);
+    m = b + region(ch * nx * NU);
+    fac = m + region(ch * nx * NU);
+    rx = 0;
+    ru = rx + region(ch * nx);
+    re = ru + region(ch * NU);
+    rhs = re + region(ch * nx);
+    buf = fac + kb * rhs;
+    at = BWD_AHEAD * buf;
+    bc = at + ch * nx * nxp;
+    kg = bc + ch * NU * nxp;
+    rw = pad4(kg + ch * nx * NU);     // rhs q's pairs at rw + q * rec
+    cv = rw + pad4(ch * nx * NU);
+    rec = pad4(ch * nx * NU) + pad4(ch * NU);
+    total = rw + kb * rec;
+  }
+};
+
+__device__ __forceinline__ void ld4(float* d, float4 v) {
+  d[0] = v.x;
+  d[1] = v.y;
+  d[2] = v.z;
+  d[3] = v.w;
+}
+
+// The rhs whose inputs the pair (instance bb, rhs k) reads: rhs 0 and 1 of
+// instance 5 trade places under a planted fault.
+__device__ __forceinline__ int src_rhs(bool swap, int64_t bb, int k, int K) {
+  return swap && bb == 5 && k < 2 && K >= 2 ? 1 - k : k;
+}
 
 template <int NX>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(BWD_WARPS * 32)
 apply_bwd_kernel(const float* __restrict__ Huinv, const float* __restrict__ G,
                  const float* __restrict__ W, const float* __restrict__ Ad,
                  const float* __restrict__ Bd, const float* __restrict__ Mm,
                  const float* __restrict__ rx, const float* __restrict__ ru,
                  const float* __restrict__ re, float* __restrict__ h_out,
-                 float* __restrict__ w_out, int batch, int K, int N) {
-  const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= batch * K) return;
-  const int b = t / K;
-  float p[NX];
-#pragma unroll
-  for (int i = 0; i < NX; ++i) p[i] = 0.0f;
+                 float* __restrict__ w_out, int K, int N, int kb_max,
+                 int ch_max) {
+  constexpr int SEG = bwd_seg(NX), RPW = 32 / SEG, NXP = pad4(NX);
+  extern __shared__ __align__(16) float sm[];
+  const BwdLayout L(ch_max, kb_max, NX);
+  const int tid = threadIdx.x, nthr = blockDim.x;
+  const int64_t b = blockIdx.x;
+  const int kk0 = blockIdx.y * kb_max, kb = min(kb_max, K - kk0);
+  // chain lanes: rhs kq of the block, row j of its carry; the lanes past
+  // the carry or past the block's rhs mirror a real one and write nothing
+  const int lane = tid & 31, j = lane % SEG;
+  const int kq = (tid >> 5) * RPW + lane / SEG;
+  const bool active = j < NX && kq < kb;
+  const int jj = min(j, NX - 1), kqc = min(kq, kb - 1);
+  const int kk = kk0 + kqc;
 
-  for (int k = N - 1; k >= 0; --k) {
-    const int64_t s = (int64_t)b * N + k;        // factor-block stage index
-    const int64_t v = (int64_t)t * N + k;        // rhs stage index
-    const float* A = Ad + s * NX * NX;
-    const float* B = Bd + s * NX * NU;
-    const float* M = Mm + s * NX * NU;
-    const float* Wk = W + s * NX * NX;
-    float w[NX], re_k[NX], Wd[NX];
-#pragma unroll
-    for (int i = 0; i < NX; ++i) {
-      w[i] = rx[v * NX + i] + p[i];
-      re_k[i] = re[v * NX + i];
+  // chunk c: stages [k0, k0 + ch), the last chunk of stages first
+  auto k0_of = [&](int c) { return max(0, N - (c + 1) * ch_max); };
+  auto ch_of = [&](int c) { return N - c * ch_max - k0_of(c); };
+  auto v0_of = [&](int q, int k0) {      // rhs stage index of slot q's inputs
+    return (b * K + src_rhs(PLANT(6), b, kk0 + q, K)) * N + k0;
+  };
+  auto issue = [&](int c) {
+    const int k0 = k0_of(c), ch = ch_of(c);
+    const int64_t s0 = b * N + k0;
+    float* f = sm + c % BWD_AHEAD * L.buf;
+    stage_async(f + L.hi, Huinv + s0 * NU * NU, ch * NU * NU, tid, nthr);
+    stage_async(f + L.g, G + s0 * NU * NX, ch * NU * NX, tid, nthr);
+    stage_async(f + L.w, W + s0 * NX * NX, ch * NX * NX, tid, nthr);
+    stage_async(f + L.a, Ad + s0 * NX * NX, ch * NX * NX, tid, nthr);
+    stage_async(f + L.b, Bd + s0 * NX * NU, ch * NX * NU, tid, nthr);
+    stage_async(f + L.m, Mm + s0 * NX * NU, ch * NX * NU, tid, nthr);
+    for (int q = 0; q < kb; ++q) {
+      const int64_t v0 = v0_of(q, k0);
+      float* rr = f + L.fac + q * L.rhs;
+      stage_async(rr + L.rx, rx + v0 * NX, ch * NX, tid, nthr);
+      stage_async(rr + L.ru, ru + v0 * NU, ch * NU, tid, nthr);
+      stage_async(rr + L.re, re + v0 * NX, ch * NX, tid, nthr);
     }
+  };
+
+  float* AT = sm + L.at;                             // A'[s][j][i]
+  float* BC = sm + L.bc;                             // B[s][i][u] at [s][u][i]
+  float2* KG = reinterpret_cast<float2*>(sm + L.kg);  // [s][j]
+  const int nchunk = (N + ch_max - 1) / ch_max;
+  for (int c = 0; c < BWD_AHEAD; ++c) {
+    if (c < nchunk) issue(c);
+    __pipeline_commit();       // (an empty group past the last chunk)
+  }
+  float p = 0.0f;
+  for (int c = 0; c < nchunk; ++c) {
+    __pipeline_wait_prior(BWD_AHEAD - 1);   // chunk c is in
+    __syncthreads();
+    const int k0 = k0_of(c), ch = ch_of(c);
+    const int64_t s0 = b * N + k0;
+    float* f = sm + c % BWD_AHEAD * L.buf;
+    const float* Hs = staged(f + L.hi, Huinv + s0 * NU * NU);
+    const float* Gs = staged(f + L.g, G + s0 * NU * NX);
+    const float* Ws = staged(f + L.w, W + s0 * NX * NX);
+    const float* As = staged(f + L.a, Ad + s0 * NX * NX);
+    const float* Bs = staged(f + L.b, Bd + s0 * NX * NU);
+    const float* Ms = staged(f + L.m, Mm + s0 * NX * NU);
+    // precompute: item (s, i < NX), row i of stage s's blocks for every
+    // rhs; item (s, NX), re M - ru for every rhs
+    for (int e = tid; e < ch * (NX + 1); e += nthr) {
+      const int s = e / (NX + 1), i = e - s * (NX + 1);
+      if (i < NX) {
+        const float* Ar = As + s * NX * NX + i * NX;
+        const float* Br = Bs + s * NX * NU + i * NU;
+        const float* Hi = Hs + s * NU * NU;
+        const float* Gk = Gs + s * NU * NX;
+        const float* Wr = Ws + s * NX * NX + i * NX;
 #pragma unroll
-    for (int i = 0; i < NX; ++i) {               // Wd = re W'
-      float acc = 0.0f;
+        for (int jx = 0; jx < NX; ++jx) AT[(s * NX + jx) * NXP + i] = Ar[jx];
+        BC[(s * NU + 0) * NXP + i] = Br[0];
+        BC[(s * NU + 1) * NXP + i] = Br[1];
+        KG[s * NX + i] = make_float2(Hi[0] * Gk[i] + Hi[1] * Gk[NX + i],
+                                     Hi[2] * Gk[i] + Hi[3] * Gk[NX + i]);
+        float wr[NX];
 #pragma unroll
-      for (int j = 0; j < NX; ++j) acc += re_k[j] * Wk[i * NX + j];
-      Wd[i] = acc;
+        for (int jx = 0; jx < NX; ++jx) wr[jx] = Wr[jx];
+        for (int q = 0; q < kb; ++q) {
+          const int64_t v0 = v0_of(q, k0);
+          float* rr = f + L.fac + q * L.rhs;
+          const float* rek = staged(rr + L.re, re + v0 * NX) + s * NX;
+          const float* rxs = staged(rr + L.rx, rx + v0 * NX) + s * NX;
+          float acc = 0.0f;                          // Wd = re W'
+#pragma unroll
+          for (int jx = 0; jx < NX; ++jx) acc += rek[jx] * wr[jx];
+          reinterpret_cast<float2*>(sm + L.rw + q * L.rec)[s * NX + i] =
+              make_float2(rxs[i], acc);
+        }
+      } else {
+        const float* Mk = Ms + s * NX * NU;
+        float mk[NX * NU];
+#pragma unroll
+        for (int t = 0; t < NX * NU; ++t) mk[t] = Mk[t];
+        for (int q = 0; q < kb; ++q) {
+          const int64_t v0 = v0_of(q, k0);
+          float* rr = f + L.fac + q * L.rhs;
+          const float* rek = staged(rr + L.re, re + v0 * NX) + s * NX;
+          const float* rus = staged(rr + L.ru, ru + v0 * NU) + s * NU;
+          float c0 = 0.0f, c1 = 0.0f;                // re M - ru
+#pragma unroll
+          for (int ix = 0; ix < NX; ++ix) {
+            c0 += rek[ix] * mk[ix * NU + 0];
+            c1 += rek[ix] * mk[ix * NU + 1];
+          }
+          reinterpret_cast<float2*>(sm + L.cv + q * L.rec)[s] =
+              make_float2(c0 - rus[0], c1 - rus[1]);
+        }
+      }
     }
-    float h[NU];
+    __syncthreads();
+    // chunk c's buffer is read: chunk c + BWD_AHEAD goes there
+    if (c + BWD_AHEAD < nchunk) issue(c + BWD_AHEAD);
+    __pipeline_commit();
+
+    // the chain of rhs kq over the chunk's stages, last to first; two
+    // records in registers, the next stage's loading while one runs
+    const float2* RW = reinterpret_cast<const float2*>(sm + L.rw + kqc * L.rec);
+    const float2* CV = reinterpret_cast<const float2*>(sm + L.cv + kqc * L.rec);
+    struct Rec {
+      float a[NXP], b0[NXP], b1[NXP];   // A[:, j], B[:, 0], B[:, 1]
+      float2 rw, cv, kg;                // (rx_j, Wd_j), re M - ru, Kg[:, j]
+    };
+    auto fetch = [&](Rec& r, int s) {
+      const float4* at =
+          reinterpret_cast<const float4*>(AT + (s * NX + jj) * NXP);
+      const float4* bc = reinterpret_cast<const float4*>(BC + s * NU * NXP);
 #pragma unroll
-    for (int u = 0; u < NU; ++u) {               // h = (Wd - w) B + re M - ru
-      float acc = 0.0f;
+      for (int t = 0; t < NXP / 4; ++t) {
+        ld4(r.a + 4 * t, at[t]);
+        ld4(r.b0 + 4 * t, bc[t]);
+        ld4(r.b1 + 4 * t, bc[NXP / 4 + t]);
+      }
+      r.rw = RW[s * NX + jj];
+      r.cv = CV[s];
+      r.kg = KG[s * NX + jj];
+    };
+    auto step = [&](const Rec& r, int s) {
+      const float w = r.rw.x + p;
+      const float d = r.rw.y - w;                  // Wd - w
+      float h0 = 0.0f, h1 = 0.0f, sa = 0.0f;
 #pragma unroll
-      for (int i = 0; i < NX; ++i) acc += (Wd[i] - w[i]) * B[i * NU + u];
-#pragma unroll
-      for (int i = 0; i < NX; ++i) acc += re_k[i] * M[i * NU + u];
-      h[u] = acc - ru[v * NU + u];
+      for (int i = 0; i < NX; ++i) {
+        const float di = __shfl_sync(0xffffffffu, d, i, SEG);
+        h0 += di * r.b0[i];
+        h1 += di * r.b1[i];
+        sa += di * r.a[i];
+      }
+      h0 += r.cv.x;                                // + re M - ru
+      h1 += r.cv.y;
+      const int k = k0 + s;
+      // p <- h Kg + (w - Wd) A
+      if (!(PLANT(5) && k == 17)) p = (h0 * r.kg.x + h1 * r.kg.y) - sa;
+      if (active) {
+        const int64_t v = (b * K + kk) * N + k;
+        w_out[v * NX + j] = w;
+        if (j < NU) h_out[v * NU + j] = j == 0 ? h0 : h1;
+      }
+    };
+    Rec ra, rb;
+    int s = ch - 1;
+    fetch(ra, s);
+    while (true) {
+      if (s > 0) fetch(rb, s - 1);
+      step(ra, s);
+      if (--s < 0) break;
+      if (s > 0) fetch(ra, s - 1);
+      step(rb, s);
+      if (--s < 0) break;
     }
-    const float* Hi = Huinv + s * NU * NU;
-    const float* Gk = G + s * NU * NX;
-#pragma unroll
-    for (int j = 0; j < NX; ++j) {               // p = h Kg + (w - Wd) A
-      const float kg0 = Hi[0] * Gk[j] + Hi[1] * Gk[NX + j];
-      const float kg1 = Hi[2] * Gk[j] + Hi[3] * Gk[NX + j];
-      float acc = h[0] * kg0 + h[1] * kg1;
-#pragma unroll
-      for (int i = 0; i < NX; ++i) acc += (w[i] - Wd[i]) * A[i * NX + j];
-      p[j] = acc;
-    }
-#pragma unroll
-    for (int u = 0; u < NU; ++u) h_out[v * NU + u] = h[u];
-#pragma unroll
-    for (int i = 0; i < NX; ++i) w_out[v * NX + i] = w[i];
   }
 }
 
@@ -747,11 +945,6 @@ struct FwdLayout {
   }
 };
 
-// The rhs whose inputs the pair (instance bb, rhs k) reads.
-__device__ __forceinline__ int src_rhs(int64_t bb, int k, int K) {
-  return PLANT(4) && bb == 5 && k < 2 && K >= 2 ? 1 - k : k;
-}
-
 template <int NX>
 __global__ void __launch_bounds__(FWD_MAX_THREADS)
 apply_fwd_kernel(const float* __restrict__ Huinv, const float* __restrict__ G,
@@ -781,7 +974,7 @@ apply_fwd_kernel(const float* __restrict__ Huinv, const float* __restrict__ G,
     stage_async(f + L.b, Bd + s0 * NX * NU, ch * NX * NU, tid, nthr);
     stage_async(f + L.m, Mm + s0 * NX * NU, ch * NX * NU, tid, nthr);
     for (int q = 0; q < kb; ++q) {
-      const int64_t v0 = (b * K + src_rhs(b, kk0 + q, K)) * N + k0;
+      const int64_t v0 = (b * K + src_rhs(PLANT(4), b, kk0 + q, K)) * N + k0;
       float* rr = f + L.fac + q * L.rhs;
       stage_async(rr + L.re, re + v0 * NX, ch * NX, tid, nthr);
       stage_async(rr + L.h, h_in + v0 * NU, ch * NU, tid, nthr);
@@ -806,7 +999,7 @@ apply_fwd_kernel(const float* __restrict__ Huinv, const float* __restrict__ G,
     float* f = sm + c % FWD_RING * L.buf;
     float* rr = f + L.fac + kq * L.rhs;
     const int64_t s0 = b * N + k0;
-    const int64_t v0 = (b * K + src_rhs(b, kk, K)) * N + k0;
+    const int64_t v0 = (b * K + src_rhs(PLANT(4), b, kk, K)) * N + k0;
     for (int s = 0; s < ch; ++s) {
       const int k = k0 + s;
       const float* dx = carry + (k & 1) * kb_max * NX;
@@ -928,10 +1121,23 @@ extern "C" int riccati_apply_bwd_f32(const float* Huinv, const float* G,
                                      void* stream) {
   if (batch <= 0 || K <= 0 || N <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  DISPATCH_NX(nx, apply_bwd_kernel<NX>
-                      <<<blocks_for(batch * K), THREADS, 0, st>>>(
-                          Huinv, G, W, Ad, Bd, M, rx, ru, re, h, w, batch, K,
-                          N));
+  // one instance and KB rhs a block, a segment of lanes per rhs; chunks
+  // as long as the block's shared memory allows
+  const int rpw = 32 / bwd_seg(nx);
+  const int kb = min(K, BWD_WARPS * rpw);
+  const int threads = (kb + rpw - 1) / rpw * 32;
+  int ch = N;
+  while (ch > 1 && BwdLayout(ch, kb, nx).total > BWD_SMEM_FLOATS) --ch;
+  const size_t smem = sizeof(float) * BwdLayout(ch, kb, nx).total;
+  const dim3 grid(batch, (K + kb - 1) / kb);
+  DISPATCH_NX(nx, {
+    auto kern = apply_bwd_kernel<NX>;
+    if (smem > 48 * 1024)
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem);
+    kern<<<grid, threads, smem, st>>>(Huinv, G, W, Ad, Bd, M, rx, ru, re, h,
+                                      w, K, N, kb, ch);
+  });
   return (int)cudaGetLastError();
 }
 

@@ -49,15 +49,28 @@ inline void __syncwarp(unsigned = 0xffffffffu) {
   emu_warp_bar[threadIdx.x / 32]->arrive_and_wait();
 }
 inline std::vector<std::vector<float>> emu_shfl;  // one row per warp
-inline float __shfl_sync(unsigned, float v, int src) {
+inline float emu_shfl_from(float v, int lane_of) {
   auto& row = emu_shfl[threadIdx.x / 32];
   row[threadIdx.x % 32] = v;
   __syncwarp();
-  const float out = row[src];
+  const float out = row[lane_of];
   __syncwarp();
   return out;
 }
+inline float __shfl_sync(unsigned, float v, int src, int width = 32) {
+  const int lane = threadIdx.x % 32;
+  return emu_shfl_from(v, (lane & ~(width - 1)) + (src & (width - 1)));
+}
+inline float __shfl_xor_sync(unsigned, float v, int m, int width = 32) {
+  const int lane = threadIdx.x % 32;
+  return emu_shfl_from(v, (lane & ~(width - 1)) + ((lane ^ m) & (width - 1)));
+}
 inline float __int_as_float(int i) { float f; std::memcpy(&f, &i, 4); return f; }
+inline float rsqrtf(float x) { return 1.0f / std::sqrt(x); }
+struct alignas(8) float2 { float x, y; };
+struct alignas(16) float4 { float x, y, z, w; };
+inline float2 make_float2(float x, float y) { return {x, y}; }
+inline float4 make_float4(float x, float y, float z, float w) { return {x, y, z, w}; }
 template <class T> inline T __ldg(const T* p) { return *p; }
 // async copies: performed at issue (EMU_DEFER unset) or at the wait that
 // covers them (EMU_DEFER=1)
