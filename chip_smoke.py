@@ -24,12 +24,14 @@ Phases (any failure exits non-zero before the result lines):
                  whose diagonal spans the IPM's range (up to its f32
                  complementarity cap, 1e7), normwise and entry by entry
                  (componentwise backward error, also of the solve on the
-                 factor kernel's L; faults built on the data and the
+                 factor kernel's L; faults built on the data, the
                  factor's planted fault, a trailing-update tile skipped,
-                 must fail it).  assemble_factor, apply_bwd and apply_fwd
-                 also per instance and output block, and their planted
-                 faults (a row dropped, a chunk staged one stage late, the
-                 p or dx carry not advanced, two rhs swapped) must fail
+                 and the solve's, column 40's forward update skipped or
+                 the back sweep reading columns for rows, must fail it).
+                 factor, assemble_factor, apply_bwd and apply_fwd also
+                 per instance and output block, and their planted faults
+                 (a row dropped, a chunk staged one stage late, the P, p
+                 or dx carry not advanced, two rhs swapped) must fail
                  those checks.  One indefinite instance among 37 must come
                  out NaN with its neighbours finite (Riccati 2x2 pivot);
                  two indefinite dense KKT matrices must come out NaN from
@@ -40,6 +42,12 @@ Phases (any failure exits non-zero before the result lines):
                  events around a CUDA graph of 20 launches, so host gaps
                  do not count), plain and library times, and each
                  kernel's bound.
+  2b. entry  -- on the card, solve_stage_qp refuses an f64 and an nx=6
+                 StageQP and solve_qp an f64 dense QP under chol="auto",
+                 each with a ValueError naming the route that runs it and
+                 with every launch count still 0; a StageQP carried across
+                 by interop.stage_qp with its defaults lands in f32 and
+                 solves like the same data solved directly.
   3. main paths, each driven with every launch count set to 0 just
                  before it and read just after:
                  (a) ``ltv_mpc_dynamic(backend="riccati")`` and
@@ -104,20 +112,27 @@ REC_BATCH, REC_TICKS = 32, 3
 # that has gone wrong, not the solver's f32 floor.
 ACC_GUARD = {"F32_PRODUCTION": (1e-1, 1e-2)}
 # the faults compiled into riccati.cu under -DRICCATI_PLANT=n, each of
-# which the assemble_factor (1, 2), apply_fwd (3, 4) or apply_bwd (5, 6)
-# checks must fail
+# which the assemble_factor (1, 2), apply_fwd (3, 4), apply_bwd (5, 6) or
+# factor (7, 8) checks must fail
 PLANTS = {1: "assemble_factor drops row 3 of stage 17",
           2: "assemble_factor stages its second chunk one stage late",
           3: "apply_fwd does not advance the dx carry at stage 17",
           4: "apply_fwd swaps rhs 0 and 1 of instance 5",
           5: "apply_bwd does not advance the p carry at stage 17",
-          6: "apply_bwd swaps rhs 0 and 1 of instance 5"}
+          6: "apply_bwd swaps rhs 0 and 1 of instance 5",
+          7: "factor stages its second chunk one stage late",
+          8: "factor does not advance P at stage 17"}
 PLANT_KERNEL = {1: "assemble_factor", 2: "assemble_factor", 3: "apply_fwd",
-                4: "apply_fwd", 5: "apply_bwd", 6: "apply_bwd"}
-# the faults compiled into chol.cu under -DCHOL_PLANT=n: (1) must fail the
-# entrywise check, (2) the NaN-poison check
+                4: "apply_fwd", 5: "apply_bwd", 6: "apply_bwd", 7: "factor",
+                8: "factor"}
+# the faults compiled into chol.cu under -DCHOL_PLANT=n: (1, 3, 4) must fail
+# the entrywise check of their kernel, (2) the NaN-poison check
 CHOL_PLANTS = {1: "chol_factor skips one trailing-update tile in panel 2",
-               2: "chol_factor clamps a non-positive pivot to 1e-6"}
+               2: "chol_factor clamps a non-positive pivot to 1e-6",
+               3: "chol_solve skips column 40's update in the forward sweep",
+               4: "chol_solve's back sweep reads column j in place of row j"}
+CHOL_PLANT_KERNEL = {1: "chol_factor", 2: "chol_factor", 3: "chol_solve",
+                     4: "chol_solve"}
 
 
 def log(msg: str) -> None:
@@ -219,7 +234,7 @@ def kernel_inputs(Bsz, N, K, seed, device, nx=NX, ns=NS):
         np.where(np.arange(2 * ns) < ns, 1.0, -1.0)
     d["Qb"] = np.eye(nx) * d["qbd"][..., None]
     d["Rb"] = np.eye(NU) * d["rbd"][..., None]
-    d["M0"] = np.zeros((Bsz, N, nx, NU))
+    d["M"] = 0.05 * rng.standard_normal((Bsz, N, nx, NU))
     return {k: torch.tensor(v, dtype=torch.float32, device=device)
             for k, v in d.items()}
 
@@ -273,10 +288,11 @@ def compare(name, outs, refs, results, tag, per_instance=False):
 
 
 def planted_faults(plants, cases, dims, tag):
-    """Launch each planted-fault build of assemble_factor, apply_fwd and
-    apply_bwd on the case's inputs; each must fail the per-instance check
-    against the plain outputs.  ``cases``: kernel name -> (inputs, plain
-    outputs).  These launches count on no kernel's launch count."""
+    """Launch each planted-fault build of factor, assemble_factor,
+    apply_fwd and apply_bwd on the case's inputs; each must fail the
+    per-instance check against the plain outputs.  ``cases``: kernel
+    name -> (inputs, plain outputs).  These launches count on no kernel's
+    launch count."""
     import torch
     from fsae_mpc_tpu_torch.ops.kernels.build import Kernel
     Bsz, N, r, nx, ns, K = dims
@@ -287,8 +303,9 @@ def planted_faults(plants, cases, dims, tag):
         name = PLANT_KERNEL[n]
         ins, refs = cases[name]
         sym = f"riccati_{name}_f32"
-        ints = (Bsz, N, r, nx, ns) if name == "assemble_factor" \
-            else (Bsz, K, N, nx)
+        ints = {"factor": (Bsz, N, nx),
+                "assemble_factor": (Bsz, N, r, nx, ns)}.get(name,
+                                                            (Bsz, K, N, nx))
         outs = tuple(torch.empty_like(t) for t in refs)
         lib.launch(Kernel(f"planted {n}", sym, ""), *ins, *outs, *ints)
         torch.cuda.synchronize()
@@ -341,7 +358,7 @@ def kernel_phase(kr, device, card, plants):
                                   else f" nx={nx} ns={ns}")
         x = kernel_inputs(Bsz, N_MAIN, K, SEED + Bsz + K + nx, device, nx,
                           ns)
-        fac_args = (x["Ad"], x["Bd"], x["Qb"], x["Rb"], x["M0"])
+        fac_args = (x["Ad"], x["Bd"], x["Qb"], x["Rb"], x["M"])
         asm_args = (x["C"], x["D"], x["Ws"], x["Dr"], x["qbd"], x["rbd"],
                     x["Ad"], x["Bd"])
         fac_k = kr.factor_cuda(*fac_args)
@@ -358,12 +375,13 @@ def kernel_phase(kr, device, card, plants):
         fwd_p = kr.apply_fwd_ref(*app_args, x["re"], *hw_p)
         torch.cuda.synchronize()
         if K == ns + 1:
-            compare("factor", fac_k, fac_p, results, tag)
+            compare("factor", fac_k, fac_p, results, tag, per_instance=True)
             compare("assemble_factor", asm_k, asm_p, results, tag,
                     per_instance=True)
         compare("apply_bwd", hw_k, hw_p, results, tag, per_instance=True)
         compare("apply_fwd", fwd_k, fwd_p, results, tag, per_instance=True)
         planted_faults(plants, {
+            "factor": (fac_args, fac_p),
             "assemble_factor": (asm_args, asm_p),
             "apply_bwd": (app_args + rhs, hw_p),
             "apply_fwd": (app_args + (x["re"],) + tuple(hw_p), fwd_p)},
@@ -409,7 +427,7 @@ def kernel_phase(kr, device, card, plants):
     Rb[5, 17] = torch.tensor([[-5.0, 0.0], [0.0, 1.0]], device=device)
     for name, out in (
             ("factor", kr.factor_cuda(x["Ad"], x["Bd"], x["Qb"], Rb,
-                                      x["M0"])),
+                                      x["M"])),
             ("assemble_factor", kr.assemble_factor_cuda(
                 x["C"], x["D"], x["Ws"], x["Dr"], x["qbd"],
                 torch.where(torch.arange(37, device=device)[:, None, None]
@@ -486,7 +504,8 @@ def chol_backward(L_p, x_p):
     return fac, sol
 
 
-def chol_entrywise(K, b, L_k, L_p, x_k, x_p, x_kk, tag, planted=None):
+def chol_entrywise(K, b, L_k, L_p, x_k, x_p, x_kk, tag, planted=None,
+                   planted_x=None):
     """K6 and K7 against their plain versions entry by entry, each entry at
     its own scale.  K's diagonal spans 1e-1..1e7, so the normwise check
     (max |k - p| / max |p|) allows every entry of L an error near 0.3 and
@@ -496,9 +515,10 @@ def chol_entrywise(K, b, L_k, L_p, x_k, x_p, x_kk, tag, planted=None):
     (:func:`chol_backward`), which are below ~(3n+1) u for any right f32
     kernel (u = 6e-8; Higham, Accuracy and Stability of Numerical
     Algorithms, Thms 10.3-10.4), hold K6's L, K7's x on the plain L, and
-    K7's ``x_kk`` on K6's L.  Faults built on the same data, and the
-    factors of the planted builds of K6 (``planted``: fault -> L), must
-    fail it."""
+    K7's ``x_kk`` on K6's L.  Faults built on the same data, the factors
+    of the planted builds of K6 (``planted``: fault -> L) and the
+    solutions of those of K7 on the plain L (``planted_x``: fault -> x),
+    must fail it."""
     import torch
     fac, sol = chol_backward(L_p, x_p)
     Kd = torch.diagonal(K, dim1=-2, dim2=-1)
@@ -514,6 +534,8 @@ def chol_entrywise(K, b, L_k, L_p, x_k, x_p, x_kk, tag, planted=None):
     }
     faults.update({f"planted {n} ({CHOL_PLANTS[n]})": fac(L)
                    for n, L in (planted or {}).items()})
+    faults.update({f"planted {n} ({CHOL_PLANTS[n]})": sol(x)
+                   for n, x in (planted_x or {}).items()})
     for name, err in errs.items():
         log(f"kernel {name:16s} [{tag}] entrywise backward err {err:.3e} "
             f"(tol {KERNEL_RTOL:.0e})")
@@ -534,6 +556,17 @@ def chol_planted(lib, K):
     lib.launch(Kernel("planted", "chol_factor_f32", ""), K, L, K.shape[0],
                K.shape[-1])
     return L
+
+
+def chol_planted_solve(lib, L, b):
+    """K7's planted build on (L, b) (a launch that no kernel's count
+    records)."""
+    import torch
+    from fsae_mpc_tpu_torch.ops.kernels.build import Kernel
+    x = torch.empty_like(b)
+    lib.launch(Kernel("planted", "chol_solve_f32", ""), L, b, x, b.shape[0],
+               b.shape[-1])
+    return x
 
 
 def chol_poison_inputs(device):
@@ -618,11 +651,17 @@ def dense_kernel_phase(device, card, chol_plants):
             x_k = kc.solve_cuda(L_p, b)
             x_p = kc.solve_ref(L_p, b)
             x_kk = kc.solve_cuda(L_k, b)
-            planted = {1: chol_planted(chol_plants[1], K)}
+            planted = {n: chol_planted(chol_plants[n], K)
+                       for n, k in CHOL_PLANT_KERNEL.items()
+                       if k == "chol_factor" and n != 2}
+            planted_x = {n: chol_planted_solve(chol_plants[n], L_p, b)
+                         for n, k in CHOL_PLANT_KERNEL.items()
+                         if k == "chol_solve"}
             torch.cuda.synchronize()
             compare("chol_factor", (L_k,), (L_p,), results, tag)
             compare("chol_solve", (x_k,), (x_p,), results, tag)
-            chol_entrywise(K, b, L_k, L_p, x_k, x_p, x_kk, tag, planted)
+            chol_entrywise(K, b, L_k, L_p, x_k, x_p, x_kk, tag, planted,
+                           planted_x)
             if Bsz != B_MAIN or n != N_DENSE[0]:
                 continue
             tri = n * (n + 1) // 2
@@ -668,6 +707,79 @@ def dense_kernel_phase(device, card, chol_plants):
     check(not (exact and clean), "chol: planted fault 2 passes the NaN-poison"
           " check")
     return results
+
+
+# ---------------------------------------------------------------------------
+# phase 2b: the solvers' entry check on the card
+# ---------------------------------------------------------------------------
+
+
+def entry_phase(model, device):
+    """On the card, ``solve_stage_qp`` and ``solve_qp`` refuse what their
+    kernels cannot run before any launch (every launch count stays 0), with
+    a ``ValueError`` that names the route that runs it: an f64 and an nx=6
+    StageQP, an f64 dense QP under ``chol="auto"``.  And a StageQP carried
+    across from numpy (as the JAX package hands it over, here in f64) with
+    ``interop.stage_qp``'s defaults lands on the card in f32 and solves,
+    equal to the same data solved directly."""
+    import dataclasses
+    import torch
+    from fsae_mpc_tpu_torch import interop
+    from fsae_mpc_tpu_torch.mpc import ltv
+    from fsae_mpc_tpu_torch.ops import ipm, riccati
+
+    track, params, mpc = model
+    xc, xl, ul = initial_batch(8, mpc, torch.float32, device)
+    x_ref = reference(xc, mpc)
+    sqp = ltv.build_stage_qp_dynamic(xc, x_ref, track, params, mpc, xl,
+                                     ul)[0]
+    dqp = ltv.build_qp_dynamic(xc, x_ref, track, params, mpc, xl, ul)[0]
+    f64 = lambda q: dataclasses.replace(q, **{
+        f.name: getattr(q, f.name).double() for f in dataclasses.fields(q)})
+    nx6 = dataclasses.replace(sqp, Ad=sqp.Ad[..., :6, :6].contiguous(),
+                              **{f: getattr(sqp, f)[..., :6].contiguous()
+                                 for f in ("dd", "x0", "Qx", "qx")},
+                              Bd=sqp.Bd[..., :6, :].contiguous(),
+                              C=sqp.C[..., :6].contiguous())
+    refusals = {
+        "solve_stage_qp, f64 StageQP": (
+            lambda: riccati.solve_stage_qp(f64(sqp), ipm.F32_OPTS),
+            'device="cpu"'),
+        "solve_stage_qp, nx=6 StageQP": (
+            lambda: riccati.solve_stage_qp(nx6, ipm.F32_OPTS),
+            'device="cpu"'),
+        'solve_qp, f64 dense QP, chol="auto"': (
+            lambda: ipm.solve_qp(*[t.double() for t in dqp[:7]],
+                                 ipm.F32_OPTS), 'chol="lapack"'),
+    }
+    torch.cuda.synchronize()
+    for what, (call, route) in refusals.items():
+        reset_launches()
+        try:
+            call()
+            msg = None
+        except ValueError as e:
+            msg = str(e)
+        got = launches()
+        log(f"entry {what}: {'refused' if msg else 'NOT refused'}, launches "
+            f"{sum(got.values())}: {msg}")
+        check(msg is not None and route in msg,
+              f"entry check: {what} not refused naming {route}")
+        check(not any(got.values()), f"entry check: {what} launched {got}")
+    src = interop.to_numpy(f64(sqp))
+    qp = interop.stage_qp(src)
+    check(qp.Ad.dtype == torch.float32 and qp.Ad.device.type == "cuda",
+          f"interop.stage_qp default: {qp.Ad.dtype} on {qp.Ad.device}")
+    u = riccati.solve_stage_qp(qp, ipm.F32_OPTS).u
+    u_direct = riccati.solve_stage_qp(sqp, ipm.F32_OPTS).u
+    diff = float((u - u_direct).abs().max())
+    log(f"entry interop.stage_qp(f64 numpy) with its defaults: "
+        f"{qp.Ad.dtype} on {qp.Ad.device}, solved, max |u - u_direct| "
+        f"{diff:.3e}")
+    check(bool(torch.isfinite(u).all()) and diff <= KERNEL_RTOL * max(
+        1.0, float(u_direct.abs().max())),
+          "interop.stage_qp's default StageQP does not solve like the same "
+          "data on the card")
 
 
 # ---------------------------------------------------------------------------
@@ -1099,6 +1211,7 @@ def main() -> int:
         track, _ = load_track(os.path.join(ROOT, "data", "fsg2019.csv"),
                               dtype=torch.float32, device=device)
         model = (track, VehicleParams(), MPC_F32)
+        entry_phase(model, device)
         paths, outs = [], {}
         for backend in ("riccati", "dense"):
             outs[backend], counts = main_path(backend, model, device, card,

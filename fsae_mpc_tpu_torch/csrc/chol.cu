@@ -33,41 +33,59 @@
 //     lower triangle only (float4 rows where n is a multiple of 4), and L
 //     leaves coalesced, zeros included.  Only the lower triangle of K is
 //     used; L's upper triangle is written as zeros.
-//   chol_solve_f32: one warp per instance.  The lower triangle of L
-//     (packed, 14 KB at n = 84) and the right-hand side are staged in
-//     shared memory (coalesced loads of the whole matrix, eight in flight
-//     per lane, so staging is not one memory latency per row); forward
-//     substitution takes a warp-reduced dot product per row (L_jk, k < j,
-//     as the Pallas
-//     body), back substitution updates the remaining right-hand side with
-//     row j of L after each x_j (the transpose of the Pallas body's
-//     column dot product, so that it, too, reads rows of L), dividing by
-//     L_jj in both sweeps.
+//   chol_solve_f32: one warp per instance; lane l owns rows l + 32 p (p <
+//     5, so n up to 160), and keeps their entries of y and x in registers
+//     for both sweeps.  The lower triangle of L alone (packed row by row,
+//     14 KB at n = 84, half the bytes of the whole matrix) is staged in
+//     shared memory by 4-byte cp.async copies, a flat walk over its
+//     entries (coalesced, no divide per element), one commit group per
+//     panel of 32 rows, all in flight at once.  Both sweeps go a panel at
+//     a time: the columns (forward) or rows (back) of the panels already
+//     done enter as one dot product per row, off the chain; then the
+//     panel's own steps run in axpy form: step j broadcasts y_j from its
+//     owner lane by __shfl_sync, and each lane below (forward) or above
+//     (back) it does one FMA with L_ij (L_ji) times 1/L_jj, which it reads
+//     from shared memory off the chain (the other lanes an FMA with 0, so
+//     that no divergent branch splits the warp between two shuffles).  A
+//     step is one shuffle and one FMA: no reduction, no divide and no
+//     shared-memory round trip on the chain.  The forward sweep waits only
+//     for its panel's copies; on the H100 the issue of the copies takes as
+//     long as the transfer, so the sweeps in fact start once the last copy
+//     is issued.  The reciprocals 1/L_jj are taken once per row as its
+//     panel lands.
 //
 // What bounds them.  The factor moves n^2 floats in and out per instance
-// and does n^3/6 multiply-adds; the solve reads the lower triangle once.
-// Both are bound by device-memory bytes at the main path's widths
-// (chip_smoke.py prints the bounds).  Eight factor blocks an SM
-// (registers capped at 64, 15.3 KB of shared memory) hold B = 1024 in
-// one wave; what holds the factor above its bound is that the blocks of
-// that wave load, factor and store in step, so the three phases' times
-// add up (tools/kernel_variants.py splits them), and the factor phase is
-// bound by shared-memory traffic and the 21 panels' dependent steps.
+// and does n^3/6 multiply-adds; the solve reads the lower triangle once
+// and does n^2 multiply-adds.  Both are bound by device-memory bytes at
+// the main path's widths (chip_smoke.py prints the bounds).  Eight factor
+// blocks an SM (registers capped at 64, 15.3 KB of shared memory) hold
+// B = 1024 in one wave; what holds the factor above its bound is that the
+// blocks of that wave load, factor and store in step, so the three
+// phases' times add up (tools/kernel_variants.py splits them), and the
+// factor phase is bound by shared-memory traffic and the 21 panels'
+// dependent steps.  The solve is one warp a block, B = 1024 blocks in one
+// wave: its time is one block's latency, the loads (at about half the
+// memory rate) plus the 2n dependent steps of the sweeps.
 //
 // Numerics.  Built without --use_fast_math.  A pivot c_j that is not
 // positive (or NaN) becomes NaN before the rsqrt, exactly as the Pallas
 // body does, so an indefinite instance comes out NaN from column j on and
 // is never clamped: the IPM's finite-iterate rejection and regularisation
-// escalation (fsae_mpc_tpu/ops/ipm.py:805-834) key on it.  Instances never
-// share a block or a warp, so the poison cannot reach a neighbour.
+// escalation (fsae_mpc_tpu/ops/ipm.py:805-834) key on it.  The solve
+// multiplies by 1/L_jj where the Pallas body divides by L_jj; a NaN in L
+// makes that instance's x NaN.  Instances never share a block or a warp,
+// so the poison cannot reach a neighbour.
 //
-// Planted faults.  Built with -DCHOL_PLANT=n, the factor carries one
-// deliberate fault; chip_smoke.py builds those copies beside the real one
-// and requires its checks to fail them.  Without the macro the fault
-// sites compile to nothing.
-//   1  one tile of the trailing update is skipped in panel 2
+// Planted faults.  Built with -DCHOL_PLANT=n, the factor or the solve
+// carries one deliberate fault; chip_smoke.py builds those copies beside
+// the real one and requires its checks to fail them.  Without the macro
+// the fault sites compile to nothing.
+//   1  one tile of the factor's trailing update is skipped in panel 2
 //   2  a pivot that is not positive is clamped to 1e-6 instead of NaN
+//   3  the solve skips column 40's update in the forward sweep
+//   4  the solve's back sweep reads column j of L in place of row j
 
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -83,6 +101,7 @@ constexpr int LOADS = 8;  // global loads in flight per thread while staging
 constexpr int FAC_THREADS = 128;
 constexpr int FAC_SLOTS = 5;  // panel rows a lane holds: n up to 160
 constexpr int FAC_LOADS = 8;  // float4 loads in flight per thread
+constexpr int SOL_SLOTS = 5;  // rows a lane of the solve owns: n up to 160
 
 __device__ __forceinline__ float nan_f() { return __int_as_float(0x7fc00000); }
 
@@ -279,57 +298,115 @@ chol_factor_kernel(const float* __restrict__ K, float* __restrict__ L,
   }
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
+// Offset of row i of the packed lower triangle (row-major, no padding).
+// Lanes on 32 consecutive rows read column j at tri(i) + j: triangular
+// numbers of 32 consecutive integers fall in 32 distinct banks, so the
+// forward sweep's column reads are free of bank conflicts, as are the
+// back sweep's row reads.
+__host__ __device__ __forceinline__ int tri(int i) { return i * (i + 1) / 2; }
 
-__global__ void chol_solve_kernel(const float* __restrict__ L,
-                                  const float* __restrict__ rhs,
-                                  float* __restrict__ x, int n) {
+__global__ void __launch_bounds__(32)
+chol_solve_kernel(const float* __restrict__ L, const float* __restrict__ rhs,
+                  float* __restrict__ x, int n) {
   extern __shared__ float sm[];
-  float* T = sm;                    // row j of L at T + j * (j + 1) / 2
-  float* y = T + n * (n + 1) / 2;   // rhs -> y -> x
+  float* T = sm;                  // row i of L at T + tri(i)
+  float* D = T + tri(n);          // 1 / L_ii
+  float* V = D + n;               // y by row (forward), then x (back)
   const int lane = threadIdx.x;
   const float* Lb = L + (size_t)blockIdx.x * n * n;
-  const int nn = n * n;
-  for (int t0 = lane; t0 < nn; t0 += LOADS * 32) {
-    float v[LOADS];
+  // the lower triangle, a cp.async group per panel of 32 rows (empty
+  // groups past n), all in flight at once: a flat walk over the packed
+  // entries t = tri(i) + k, lane-consecutive, (i, k) advanced without a
+  // divide
 #pragma unroll
-    for (int u = 0; u < LOADS; ++u) {
-      const int t = t0 + u * 32;
-      v[u] = t < nn ? Lb[t] : 0.0f;
+  for (int p = 0; p < SOL_SLOTS; ++p) {
+    const int t1 = tri(min(n, 32 * (p + 1)));
+    int i = 32 * p, k = lane;
+    while (k > i) k -= ++i;
+    for (int t = tri(32 * p) + lane; t < t1; t += 32) {
+      __pipeline_memcpy_async(T + t, Lb + (size_t)i * n + k, 4);
+      k += 32;
+      while (k > i) k -= ++i;
     }
-#pragma unroll
-    for (int u = 0; u < LOADS; ++u) {
-      const int t = t0 + u * 32;
-      const int j = t / n, k = t - j * n;
-      if (t < nn && k <= j) T[j * (j + 1) / 2 + k] = v[u];
-    }
+    __pipeline_commit();
   }
-  for (int k = lane; k < n; k += 32) y[k] = rhs[(size_t)blockIdx.x * n + k];
-  __syncwarp();
+  // lane l owns rows l + 32 p: its entries of y and x stay in registers
+  // (the panel loops unroll, so p is static; the steps inside a panel stay
+  // a loop unrolled by 4, which ran faster than fully unrolled sweeps)
+  float y[SOL_SLOTS];
+#pragma unroll
+  for (int p = 0; p < SOL_SLOTS; ++p) {
+    const int i = 32 * p + lane;
+    y[p] = i < n ? rhs[(size_t)blockIdx.x * n + i] : 0.0f;
+  }
 
-  // forward substitution  L y = b
-  for (int j = 0; j < n; ++j) {
-    const float* row = T + j * (j + 1) / 2;
-    float s = 0.0f;
-    for (int k = lane; k < j; k += 32) s += row[k] * y[k];
-    s = warp_sum(s);
-    if (lane == 0) y[j] = (y[j] - s) / row[j];
+  // forward substitution L y = b, a panel of rows at a time as it lands:
+  // the columns of the panels before enter as one dot product per row
+  // (off the chain), then the panel's own columns in axpy form, step j
+  // broadcasting y_j L_jj (not yet divided) from its owner lane.  Every
+  // lane does each step's FMA, with 0 where its row has no L_ij: no
+  // divergent branch between two shuffles.
+#pragma unroll
+  for (int p = 0; p < SOL_SLOTS; ++p) {
+    if (32 * p >= n) break;
+    __pipeline_wait_prior(SOL_SLOTS - 1 - p);
+    __syncwarp();
+    const int i = 32 * p + lane;
+    const bool own = i < n;
+    const float* Ti = T + tri(min(i, n - 1));
+    if (own) {
+      D[i] = 1.0f / Ti[i];
+      float acc = 0.0f;
+      for (int k = 0; k < 32 * p; ++k)
+        if (!(PLANT(3) && k == 40)) acc += Ti[k] * V[k];
+      y[p] -= acc;
+    }
+    __syncwarp();
+    const int steps = min(32, n - 32 * p);
+#pragma unroll 4
+    for (int jj = 0; jj < steps; ++jj) {
+      const int j = 32 * p + jj;
+      const float raw = __shfl_sync(0xffffffffu, y[p], jj);
+      const float lij = Ti[j];
+      const float c = lane > jj && !(PLANT(3) && j == 40) ? lij * D[j] : 0.0f;
+      y[p] = fmaf(-c, raw, y[p]);
+    }
+    if (own) {
+      y[p] *= D[i];
+      V[i] = y[p];
+    }
     __syncwarp();
   }
-  // back substitution  L' x = y
-  for (int j = n - 1; j >= 0; --j) {
-    const float* row = T + j * (j + 1) / 2;
-    const float xj = y[j] / row[j];
-    __syncwarp();
-    if (lane == 0) y[j] = xj;
-    for (int k = lane; k < j; k += 32) y[k] -= row[k] * xj;
+
+  // back substitution L' x = y, the last panel first: the rows of the
+  // panels after enter as one dot product per row, then the panel's own
+  // rows j of L in axpy form
+#pragma unroll
+  for (int p = SOL_SLOTS - 1; p >= 0; --p) {
+    if (32 * p >= n) continue;
+    const int i = 32 * p + lane;
+    const bool own = i < n;
+    const int ic = min(i, n - 1);
+    if (own) {
+      float acc = 0.0f;
+      for (int j = 32 * (p + 1); j < n; ++j) acc += T[tri(j) + i] * V[j];
+      y[p] -= acc;
+    }
+#pragma unroll 4
+    for (int jj = min(31, n - 1 - 32 * p); jj >= 0; --jj) {
+      const int j = 32 * p + jj;
+      const float raw = __shfl_sync(0xffffffffu, y[p], jj);
+      const float lji = PLANT(4) ? T[tri(ic) + j] : T[tri(j) + ic];
+      const float c = lane < jj ? lji * D[j] : 0.0f;
+      y[p] = fmaf(-c, raw, y[p]);
+    }
+    if (own) {
+      y[p] *= D[i];
+      V[i] = y[p];
+      x[(size_t)blockIdx.x * n + i] = y[p];
+    }
     __syncwarp();
   }
-  for (int k = lane; k < n; k += 32) x[(size_t)blockIdx.x * n + k] = y[k];
 }
 
 }  // namespace
@@ -351,8 +428,9 @@ extern "C" int chol_factor_f32(const float* K, float* L, int batch, int n,
 
 extern "C" int chol_solve_f32(const float* L, const float* rhs, float* x,
                               int batch, int n, void* stream) {
-  if (batch <= 0 || n <= 0) return (int)cudaErrorInvalidValue;
-  const size_t smem = sizeof(float) * ((size_t)n * (n + 1) / 2 + n);
+  if (batch <= 0 || n <= 0 || n > 32 * SOL_SLOTS)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = sizeof(float) * ((size_t)tri(n) + 2 * n);
   if (smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
   chol_solve_kernel<<<batch, 32, smem, (cudaStream_t)stream>>>(L, rhs, x, n);
   return (int)cudaGetLastError();

@@ -17,8 +17,8 @@
 // Design.  On the TPU the batch rode the 128 vector lanes and the stage
 // loop was the sequential grid axis, with the Riccati carry in VMEM
 // scratch.  Here the batch-first layout of the Python API is kept, so one
-// instance's data is contiguous, and the three sweeps that every IPM
-// iteration runs are block-cooperative per instance:
+// instance's data is contiguous, and every sweep is block-cooperative per
+// instance:
 //
 //   K1 assemble_factor: one block of 128 threads per instance, in
 //     chunks of whole stages (or, for a long stage, of its rows) from the
@@ -49,31 +49,35 @@
 //     ahead, so each factor block is read once per instance, not once
 //     per rhs.  The carry passes through shared memory (two buffers, one
 //     barrier per stage).
+//   K4 factor (once per cold solve): K1 without the assembly.  One block
+//     of 128 threads per instance; warps 1-3 stage chunks of whole stages
+//     (Qb, Rb, M, A, B) from the last stage down into a ring of three
+//     buffers with cp.async, two chunks ahead, while warp 0 runs the
+//     recursion over the chunk in hand.  One block barrier a chunk.
 //
-// K4 keeps the first design: one thread owns one instance and runs the
-// stage loop with the carry and the stage blocks in registers (nx <= 9,
-// nu == 2, ns <= 4, templated so every loop unrolls); its loads are not
-// coalesced.  Instances never share arithmetic in any sweep, so a
-// NaN-poisoned instance cannot reach its neighbours.
+// K1 and K4 run one recursion, RiccatiWarp::stage.  Instances never share
+// arithmetic in any sweep, so a NaN-poisoned instance cannot reach its
+// neighbours.
 //
 // What bounds it.  Each sweep moves its inputs once and its outputs once
 // (K1 ~80 KB an instance at N=40, nx=7, r=20, ns=4; K2 ~43 KB and K3
-// ~40 KB at K=5), ~24 us, ~13 us and ~15 us for B=1024 at the card's
-// memory rate; the arithmetic is tiny (~2 kFLOP per stage and rhs).  What
-// holds them above that is latency: each stage of the recursions is a
-// chain of dependent dot products (and, in K1 and K3, barriers), and the
-// staging needs several chunks in flight per SM to cover device-memory
-// latency.  Hence the rings, the chunk sizes (AF_STAGE_FLOATS,
-// BWD_SMEM_FLOATS, FWD_STAGE_FLOATS) and eight resident blocks per SM (K1:
-// registers capped at 64); at B=1024 the sweeps run in one wave.
+// ~40 KB at K=5; K4 ~31 KB), ~24 us, ~13 us, ~15 us and ~10 us for B=1024
+// at the card's memory rate; the arithmetic is tiny (~2 kFLOP per stage
+// and rhs).  What holds them above that is latency: each stage of the
+// recursions is a chain of dependent dot products (and, in K1 and K3,
+// barriers), and the staging needs several chunks in flight per SM to
+// cover device-memory latency.  Hence the rings, the chunk sizes
+// (AF_STAGE_FLOATS, BWD_SMEM_FLOATS, FWD_STAGE_FLOATS, F4_STAGE_FLOATS)
+// and eight resident blocks per SM (K1, K4: registers capped at 64); at
+// B=1024 the sweeps run in one wave.
 
-// Planted faults.  Built with -DRICCATI_PLANT=n (n = 1..6), K1, K2 or K3
-// carries one deliberate fault (see PLANT below); chip_smoke.py builds
+// Planted faults.  Built with -DRICCATI_PLANT=n (n = 1..8), K1, K2, K3 or
+// K4 carries one deliberate fault (see PLANT below); chip_smoke.py builds
 // those copies beside the real one and requires its comparisons to fail
 // them.  Without the macro the fault sites compile to nothing.
 //
 // Numerics.  Built without --use_fast_math: a non-SPD 2x2 pivot (det <= 0
-// or Hu00 <= 0) must come out NaN, never clamped, because the IPM's
+// or Hu00 <= 0) must come out NaN (K1, K4), never clamped, because the IPM's
 // inertia escalation keys on non-finite iterates
 // (fsae_mpc_tpu/ops/riccati.py:1009-1019).  P is symmetrised at every
 // stage.  nvcc's default FMA contraction stays on: these sweeps hold no
@@ -94,12 +98,13 @@
 //   4  K3 swaps right-hand sides 0 and 1 of instance 5
 //   5  K2 does not advance the p carry at stage 17
 //   6  K2 swaps right-hand sides 0 and 1 of instance 5
+//   7  K4 stages its second chunk one stage late
+//   8  K4 does not advance P at stage 17
 #define PLANT(n) (RICCATI_PLANT == (n))
 
 namespace {
 
 constexpr int NU = 2;
-constexpr int THREADS = 64;   // K4: instances a block
 
 __device__ __forceinline__ float nan_f() { return __int_as_float(0x7fc00000); }
 
@@ -119,156 +124,8 @@ __device__ __forceinline__ void inv2_poison(const float (&Hu)[NU][NU],
   Hi[1][1] = a * idet;
 }
 
-// One backward Riccati stage from the assembled blocks: W = Qb + P,
-// V = W B + M, Hu = Rb + B'V + M'B, G = V'A, P <- sym(A'WA - G'Hu^-1 G).
-// Qb is overwritten with W.  Writes Huinv, G, W for this stage.
-template <int NX>
-__device__ __forceinline__ void riccati_stage(
-    float (&P)[NX][NX], float (&Qb)[NX][NX], const float (&Rb)[NU][NU],
-    const float (&M)[NX][NU], const float* __restrict__ A,
-    const float* __restrict__ B, float* __restrict__ huinv_out,
-    float* __restrict__ g_out, float* __restrict__ w_out) {
-  float (&W)[NX][NX] = Qb;
-#pragma unroll
-  for (int i = 0; i < NX; ++i)
-#pragma unroll
-    for (int j = 0; j < NX; ++j) W[i][j] += P[i][j];
-
-  float Bk[NX][NU];
-#pragma unroll
-  for (int i = 0; i < NX; ++i)
-#pragma unroll
-    for (int u = 0; u < NU; ++u) Bk[i][u] = B[i * NU + u];
-
-  float V[NX][NU];
-#pragma unroll
-  for (int i = 0; i < NX; ++i)
-#pragma unroll
-    for (int u = 0; u < NU; ++u) {
-      float acc = 0.0f;
-#pragma unroll
-      for (int j = 0; j < NX; ++j) acc += W[i][j] * Bk[j][u];
-      V[i][u] = acc + M[i][u];
-    }
-
-  float Hu[NU][NU];
-#pragma unroll
-  for (int u = 0; u < NU; ++u)
-#pragma unroll
-    for (int v = 0; v < NU; ++v) {
-      float acc = Rb[u][v];
-#pragma unroll
-      for (int i = 0; i < NX; ++i) acc += Bk[i][u] * V[i][v];
-#pragma unroll
-      for (int i = 0; i < NX; ++i) acc += M[i][u] * Bk[i][v];
-      Hu[u][v] = acc;
-    }
-  float Hi[NU][NU];
-  inv2_poison(Hu, Hi);
-
-  // G = V' A  (nu, nx), row-major
-  float G[NU][NX];
-#pragma unroll
-  for (int u = 0; u < NU; ++u)
-#pragma unroll
-    for (int j = 0; j < NX; ++j) {
-      float acc = 0.0f;
-#pragma unroll
-      for (int i = 0; i < NX; ++i) acc += V[i][u] * A[i * NX + j];
-      G[u][j] = acc;
-    }
-
-  // Kg = Hu^-1 G  (nu, nx)
-  float Kg[NU][NX];
-#pragma unroll
-  for (int u = 0; u < NU; ++u)
-#pragma unroll
-    for (int j = 0; j < NX; ++j) Kg[u][j] = Hi[u][0] * G[0][j] + Hi[u][1] * G[1][j];
-
-  // WA = W A, then P_new = A' WA - G' Kg, symmetrised
-  float WA[NX][NX];
-#pragma unroll
-  for (int i = 0; i < NX; ++i)
-#pragma unroll
-    for (int j = 0; j < NX; ++j) {
-      float acc = 0.0f;
-#pragma unroll
-      for (int k = 0; k < NX; ++k) acc += W[i][k] * A[k * NX + j];
-      WA[i][j] = acc;
-    }
-#pragma unroll
-  for (int i = 0; i < NX; ++i)
-#pragma unroll
-    for (int j = 0; j < NX; ++j) {
-      float acc = 0.0f;
-#pragma unroll
-      for (int k = 0; k < NX; ++k) acc += A[k * NX + i] * WA[k][j];
-      P[i][j] = acc - (G[0][i] * Kg[0][j] + G[1][i] * Kg[1][j]);
-    }
-#pragma unroll
-  for (int i = 0; i < NX; ++i)
-#pragma unroll
-    for (int j = i + 1; j < NX; ++j) {
-      const float s = 0.5f * (P[i][j] + P[j][i]);
-      P[i][j] = s;
-      P[j][i] = s;
-    }
-
-#pragma unroll
-  for (int u = 0; u < NU; ++u)
-#pragma unroll
-    for (int v = 0; v < NU; ++v) huinv_out[u * NU + v] = Hi[u][v];
-#pragma unroll
-  for (int u = 0; u < NU; ++u)
-#pragma unroll
-    for (int j = 0; j < NX; ++j) g_out[u * NX + j] = G[u][j];
-#pragma unroll
-  for (int i = 0; i < NX; ++i)
-#pragma unroll
-    for (int j = 0; j < NX; ++j) w_out[i * NX + j] = W[i][j];
-}
-
 // ---------------------------------------------------------------------------
-// K4: factor sweep from given Qb, Rb, M
-// ---------------------------------------------------------------------------
-
-template <int NX>
-__global__ void __launch_bounds__(THREADS)
-factor_kernel(const float* __restrict__ Ad, const float* __restrict__ Bd,
-              const float* __restrict__ Qb, const float* __restrict__ Rb,
-              const float* __restrict__ Mm, float* __restrict__ Huinv,
-              float* __restrict__ G, float* __restrict__ W, int batch,
-              int N) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= batch) return;
-  float P[NX][NX];
-#pragma unroll
-  for (int i = 0; i < NX; ++i)
-#pragma unroll
-    for (int j = 0; j < NX; ++j) P[i][j] = 0.0f;
-
-  for (int k = N - 1; k >= 0; --k) {
-    const int64_t s = (int64_t)b * N + k;
-    float Q[NX][NX], R[NU][NU], M[NX][NU];
-#pragma unroll
-    for (int i = 0; i < NX; ++i)
-#pragma unroll
-      for (int j = 0; j < NX; ++j) Q[i][j] = Qb[s * NX * NX + i * NX + j];
-#pragma unroll
-    for (int u = 0; u < NU; ++u)
-#pragma unroll
-      for (int v = 0; v < NU; ++v) R[u][v] = Rb[s * NU * NU + u * NU + v];
-#pragma unroll
-    for (int i = 0; i < NX; ++i)
-#pragma unroll
-      for (int u = 0; u < NU; ++u) M[i][u] = Mm[s * NX * NU + i * NU + u];
-    riccati_stage<NX>(P, Q, R, M, Ad + s * NX * NX, Bd + s * NX * NU,
-                      Huinv + s * NU * NU, G + s * NU * NX, W + s * NX * NX);
-  }
-}
-
-// ---------------------------------------------------------------------------
-// Staging through shared memory (K1, K3)
+// Staging through shared memory (K1, K2, K3, K4)
 // ---------------------------------------------------------------------------
 
 // Floats past the last 16-byte boundary of a global address.
@@ -303,6 +160,143 @@ __device__ __forceinline__ void stage_async(float* dst, const float* src,
 // Shared-memory floats of a staged region of n floats: slack for the
 // offset, rounded up to keep the next region 16-byte aligned.
 __host__ __device__ constexpr int region(int n) { return (n + 3 + 3) & ~3; }
+
+// ---------------------------------------------------------------------------
+// The backward Riccati recursion on one warp (K1, K4)
+// ---------------------------------------------------------------------------
+//
+// One stage from its blocks in shared memory: W = Qb + P, V = W B + M,
+// Hu = Rb + B'V + M'B, G = V'A, P <- sym(A'WA - G'Hu^-1 G) (P = 0 past the
+// last stage); writes the stage's W, G and Hu^-1.  Lane l owns the
+// upper-triangle entries l + 32 t of P and W (Qb is symmetric: its upper
+// triangle is read), and the entries l + 32 t of WA = W A (row-major).  W,
+// WA, V and G pass between the lanes through the warp's record in shared
+// memory (rec_floats(NX) floats), three __syncwarp a stage.
+
+// Entry (i, j) of A'WA - G' Hu^-1 G, with WA = W A and G in shared memory.
+template <int NX>
+__device__ __forceinline__ float p_entry(const float* Ak, const float* WAr,
+                                         const float* Gr, float h00,
+                                         float h01, float h10, float h11,
+                                         int i, int j) {
+  const float kg0 = h00 * Gr[j] + h01 * Gr[NX + j];
+  const float kg1 = h10 * Gr[j] + h11 * Gr[NX + j];
+  float acc = 0.0f;
+#pragma unroll
+  for (int m = 0; m < NX; ++m) acc += Ak[m * NX + i] * WAr[m * NX + j];
+  return acc - (Gr[i] * kg0 + Gr[NX + i] * kg1);
+}
+
+// Floats of the recursion's record: W, WA (nx, nx), V (nx, nu), G (nu, nx).
+__host__ __device__ constexpr int rec_floats(int nx) {
+  return (2 * nx * nx + 4 * nx + 3) & ~3;
+}
+
+template <int NX>
+struct RiccatiWarp {
+  static constexpr int TRI = NX * (NX + 1) / 2;
+  static constexpr int NT = (TRI + 31) / 32;
+  static constexpr int NE = (NX * NX + 31) / 32;
+  int lane;
+  int ui[NT], uj[NT];
+  float pv[NT];
+
+  __device__ explicit RiccatiWarp(int lane_) : lane(lane_) {
+#pragma unroll
+    for (int t = 0; t < NT; ++t) {
+      int a = 0, rem = min(lane + 32 * t, TRI - 1);
+      while (rem >= NX - a) rem -= NX - a++;
+      ui[t] = a;
+      uj[t] = a + rem;
+      pv[t] = 0.0f;
+    }
+  }
+
+  // ``advance`` false keeps P as it was (a planted fault of K4).
+  __device__ __forceinline__ void stage(
+      const float* Qk, const float* Rk, const float* Mk, const float* Ak,
+      const float* Bk, float* rec, float* __restrict__ W_out,
+      float* __restrict__ G_out, float* __restrict__ Huinv_out,
+      bool advance = true) {
+    float* Wr = rec;
+    float* WAr = Wr + NX * NX;
+    float* Vr = WAr + NX * NX;       // V = W B + M, (nx, nu)
+    float* Gr = Vr + NX * NU;        // G = V' A, (nu, nx)
+#pragma unroll
+    for (int t = 0; t < NT; ++t) {          // W = Qb + P
+      if (lane + 32 * t < TRI) {
+        const int i = ui[t], j = uj[t];
+        const float w = Qk[i * NX + j] + pv[t];
+        Wr[i * NX + j] = w;
+        Wr[j * NX + i] = w;
+        W_out[i * NX + j] = w;
+        if (i != j) W_out[j * NX + i] = w;
+      }
+    }
+    __syncwarp();
+#pragma unroll
+    for (int t = 0; t < NE; ++t) {          // WA = W A
+      const int e = lane + 32 * t;
+      if (e < NX * NX) {
+        const int i = e / NX, j = e - i * NX;
+        float a2 = 0.0f;
+#pragma unroll
+        for (int m = 0; m < NX; ++m) a2 += Wr[i * NX + m] * Ak[m * NX + j];
+        WAr[e] = a2;
+      }
+    }
+    if (lane < NX * NU) {                   // V = W B + M
+      const int i = lane / NU, u = lane - i * NU;
+      float a2 = 0.0f;
+#pragma unroll
+      for (int j = 0; j < NX; ++j) a2 += Wr[i * NX + j] * Bk[j * NU + u];
+      Vr[lane] = a2 + Mk[lane];
+    }
+    __syncwarp();
+    float hu = 0.0f;                        // Hu = Rb + B'V + M'B
+    if (lane < NU * NU) {
+      const int u = lane / NU, v = lane - u * NU;
+      hu = Rk[lane];
+#pragma unroll
+      for (int i = 0; i < NX; ++i) hu += Bk[i * NU + u] * Vr[i * NU + v];
+#pragma unroll
+      for (int i = 0; i < NX; ++i) hu += Mk[i * NU + u] * Bk[i * NU + v];
+    }
+    float Hu[NU][NU], Hi[NU][NU];
+    Hu[0][0] = __shfl_sync(0xffffffffu, hu, 0);
+    Hu[0][1] = __shfl_sync(0xffffffffu, hu, 1);
+    Hu[1][0] = __shfl_sync(0xffffffffu, hu, 2);
+    Hu[1][1] = __shfl_sync(0xffffffffu, hu, 3);
+    inv2_poison(Hu, Hi);
+    if (lane < NU * NX) {                   // G = V' A
+      const int u = lane / NX, j = lane - u * NX;
+      float a2 = 0.0f;
+#pragma unroll
+      for (int i = 0; i < NX; ++i) a2 += Vr[i * NU + u] * Ak[i * NX + j];
+      Gr[lane] = a2;
+      G_out[lane] = a2;
+    }
+    if (lane < NU * NU)
+      Huinv_out[lane] = lane == 0   ? Hi[0][0]
+                        : lane == 1 ? Hi[0][1]
+                        : lane == 2 ? Hi[1][0]
+                                    : Hi[1][1];
+    __syncwarp();
+    if (!advance) return;
+#pragma unroll
+    for (int t = 0; t < NT; ++t) {          // P = sym(A'WA - G'Hu^-1 G)
+      if (lane + 32 * t < TRI) {
+        const int i = ui[t], j = uj[t];
+        const float pij = p_entry<NX>(Ak, WAr, Gr, Hi[0][0], Hi[0][1],
+                                      Hi[1][0], Hi[1][1], i, j);
+        pv[t] = i == j ? pij
+                       : 0.5f * (pij + p_entry<NX>(Ak, WAr, Gr, Hi[0][0],
+                                                   Hi[0][1], Hi[1][0],
+                                                   Hi[1][1], j, i));
+      }
+    }
+  }
+};
 
 // ---------------------------------------------------------------------------
 // K1: fused quadform assembly + factor sweep, one block per instance
@@ -356,7 +350,7 @@ struct AfLayout {
     tile = (Hss + ch * ns * ns + 3) & ~3;
     tiles = AF_RING * buf;
     rec = tiles + 2 * tile;                           // W, WA, V, G
-    pairs = rec + ((2 * nx * nx + 4 * nx + 3) & ~3);
+    pairs = rec + rec_floats(nx);
     const int m = nx + NU + ns;
     total = pairs + (m * (m + 1) / 2 + 1) / 2;
   }
@@ -376,20 +370,6 @@ struct AfChunk {
     last = q0 + rc == r;
   }
 };
-
-// Entry (i, j) of A'WA - G' Hu^-1 G, with WA = W A and G in shared memory.
-template <int NX>
-__device__ __forceinline__ float p_entry(const float* Ak, const float* WAr,
-                                         const float* Gr, float h00,
-                                         float h01, float h10, float h11,
-                                         int i, int j) {
-  const float kg0 = h00 * Gr[j] + h01 * Gr[NX + j];
-  const float kg1 = h10 * Gr[j] + h11 * Gr[NX + j];
-  float acc = 0.0f;
-#pragma unroll
-  for (int m = 0; m < NX; ++m) acc += Ak[m * NX + i] * WAr[m * NX + j];
-  return acc - (Gr[i] * kg0 + Gr[NX + i] * kg1);
-}
 
 template <int NX, int NS>
 __global__ void __launch_bounds__(AF_THREADS, 8)
@@ -447,24 +427,11 @@ assemble_factor_kernel(
   }
   __syncthreads();
 
-  // producers: partial Gram sums; warp 0: the upper triangle of P
+  // producers: partial Gram sums; warp 0: the recursion's lanes
   float acc[AF_ITEMS];
 #pragma unroll
   for (int t = 0; t < AF_ITEMS; ++t) acc[t] = 0.0f;
-  constexpr int TRI = NX * (NX + 1) / 2;
-  constexpr int NT = (TRI + 31) / 32;
-  constexpr int NE = (NX * NX + 31) / 32;
-  const int lane = tid & 31;
-  int ui[NT], uj[NT];
-  float pv[NT];
-#pragma unroll
-  for (int t = 0; t < NT; ++t) {
-    int a = 0, rem = min(lane + 32 * t, TRI - 1);
-    while (rem >= NX - a) rem -= NX - a++;
-    ui[t] = a;
-    uj[t] = a + rem;
-    pv[t] = 0.0f;
-  }
+  RiccatiWarp<NX> rw(tid & 31);
 
   for (int c = 0; c <= nchunk; ++c) {
     if (tid >= 32) {
@@ -548,9 +515,7 @@ assemble_factor_kernel(
       __pipeline_commit();
       __pipeline_wait_prior(AF_AHEAD - 1);   // chunk c + 1 is in
     } else if (c >= 1) {
-      // warp 0: the backward recursion over chunk c-1's stages.  Lane l
-      // owns the upper-triangle entries l + 32 t of P and W, and the
-      // entries l + 32 t of WA = W A (row-major).
+      // warp 0: the backward recursion over chunk c-1's stages
       const AfChunk x(c - 1, N, r, ch_max, rc_max);
       if (x.last) {
         float* buf = sm + (c - 1) % AF_RING * L.buf;
@@ -558,94 +523,114 @@ assemble_factor_kernel(
         const int64_t s0 = b * N + x.k0;
         const float* As = staged(buf + L.A, Ad + s0 * NX * NX);
         const float* Bs = staged(buf + L.B, Bd + s0 * NX * NU);
-        float* Wr = sm + L.rec;
-        float* WAr = Wr + NX * NX;
-        float* Vr = WAr + NX * NX;       // V = W B + M, (nx, nu)
-        float* Gr = Vr + NX * NU;        // G = V' A, (nu, nx)
         for (int s = x.ch - 1; s >= 0; --s) {
           const int64_t sk = s0 + s;
-          const float* Ak = As + s * NX * NX;
-          const float* Bk = Bs + s * NX * NU;
-          const float* Qk = T + L.Q + s * NX * NX;
-          const float* Rk = T + L.R + s * NU * NU;
-          const float* Mk = T + L.Mq + s * NX * NU;
-#pragma unroll
-          for (int t = 0; t < NT; ++t) {          // W = Qb + P
-            if (lane + 32 * t < TRI) {
-              const int i = ui[t], j = uj[t];
-              const float w = Qk[i * NX + j] + pv[t];
-              Wr[i * NX + j] = w;
-              Wr[j * NX + i] = w;
-              W[sk * NX * NX + i * NX + j] = w;
-              if (i != j) W[sk * NX * NX + j * NX + i] = w;
-            }
-          }
-          __syncwarp();
-#pragma unroll
-          for (int t = 0; t < NE; ++t) {          // WA = W A
-            const int e = lane + 32 * t;
-            if (e < NX * NX) {
-              const int i = e / NX, j = e - i * NX;
-              float a2 = 0.0f;
-#pragma unroll
-              for (int m = 0; m < NX; ++m) a2 += Wr[i * NX + m] * Ak[m * NX + j];
-              WAr[e] = a2;
-            }
-          }
-          if (lane < NX * NU) {                   // V = W B + M
-            const int i = lane / NU, u = lane - i * NU;
-            float a2 = 0.0f;
-#pragma unroll
-            for (int j = 0; j < NX; ++j) a2 += Wr[i * NX + j] * Bk[j * NU + u];
-            Vr[lane] = a2 + Mk[lane];
-          }
-          __syncwarp();
-          float hu = 0.0f;                        // Hu = Rb + B'V + M'B
-          if (lane < NU * NU) {
-            const int u = lane / NU, v = lane - u * NU;
-            hu = Rk[lane];
-#pragma unroll
-            for (int i = 0; i < NX; ++i) hu += Bk[i * NU + u] * Vr[i * NU + v];
-#pragma unroll
-            for (int i = 0; i < NX; ++i) hu += Mk[i * NU + u] * Bk[i * NU + v];
-          }
-          float Hu[NU][NU], Hi[NU][NU];
-          Hu[0][0] = __shfl_sync(0xffffffffu, hu, 0);
-          Hu[0][1] = __shfl_sync(0xffffffffu, hu, 1);
-          Hu[1][0] = __shfl_sync(0xffffffffu, hu, 2);
-          Hu[1][1] = __shfl_sync(0xffffffffu, hu, 3);
-          inv2_poison(Hu, Hi);
-          if (lane < NU * NX) {                   // G = V' A
-            const int u = lane / NX, j = lane - u * NX;
-            float a2 = 0.0f;
-#pragma unroll
-            for (int i = 0; i < NX; ++i) a2 += Vr[i * NU + u] * Ak[i * NX + j];
-            Gr[lane] = a2;
-            G[sk * NU * NX + lane] = a2;
-          }
-          if (lane < NU * NU)
-            Huinv[sk * NU * NU + lane] = lane == 0   ? Hi[0][0]
-                                         : lane == 1 ? Hi[0][1]
-                                         : lane == 2 ? Hi[1][0]
-                                                     : Hi[1][1];
-          __syncwarp();
-#pragma unroll
-          for (int t = 0; t < NT; ++t) {          // P = sym(A'WA - G'Hu^-1 G)
-            if (lane + 32 * t < TRI) {
-              const int i = ui[t], j = uj[t];
-              const float pij = p_entry<NX>(Ak, WAr, Gr, Hi[0][0], Hi[0][1],
-                                            Hi[1][0], Hi[1][1], i, j);
-              pv[t] = i == j ? pij
-                             : 0.5f * (pij + p_entry<NX>(
-                                                 Ak, WAr, Gr, Hi[0][0],
-                                                 Hi[0][1], Hi[1][0],
-                                                 Hi[1][1], j, i));
-            }
-          }
+          rw.stage(T + L.Q + s * NX * NX, T + L.R + s * NU * NU,
+                   T + L.Mq + s * NX * NU, As + s * NX * NX,
+                   Bs + s * NX * NU, sm + L.rec, W + sk * NX * NX,
+                   G + sk * NU * NX, Huinv + sk * NU * NU);
         }
       }
     }
     __syncthreads();
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K4: factor sweep from given Qb, Rb, M, one block per instance
+// ---------------------------------------------------------------------------
+//
+// K1's pipeline without the assembly.  Warps 1-3 (the producers) stage
+// chunk c + F4_AHEAD -- ch whole stages of Qb, Rb, M, A and B -- into a
+// ring of F4_RING buffers, from the last chunk of stages to the first,
+// while warp 0 runs K1's recursion (RiccatiWarp) over chunk c straight
+// from its buffer; one block barrier a chunk.
+
+constexpr int F4_THREADS = 128;
+constexpr int F4_PRODUCERS = F4_THREADS - 32;
+constexpr int F4_AHEAD = 2;            // chunks in flight past the one in use
+constexpr int F4_RING = F4_AHEAD + 1;  // staging buffers
+constexpr int F4_STAGE_FLOATS = 1536;  // one staging buffer
+
+// Shared-memory layout of K4 (offsets in floats, 16-byte aligned): the
+// ring of staging buffers, each the five stage blocks ch stages long, then
+// the recursion's record.
+struct F4Layout {
+  int Q, R, M, A, B, buf, rec, total;
+  __host__ __device__ F4Layout(int ch, int nx) {
+    Q = 0;
+    R = Q + region(ch * nx * nx);
+    M = R + region(ch * NU * NU);
+    A = M + region(ch * nx * NU);
+    B = A + region(ch * nx * nx);
+    buf = B + region(ch * nx * NU);
+    rec = F4_RING * buf;
+    total = rec + rec_floats(nx);
+  }
+};
+
+template <int NX>
+__global__ void __launch_bounds__(F4_THREADS, 8)
+factor_kernel(const float* __restrict__ Ad, const float* __restrict__ Bd,
+              const float* __restrict__ Qb, const float* __restrict__ Rb,
+              const float* __restrict__ Mm, float* __restrict__ Huinv,
+              float* __restrict__ G, float* __restrict__ W, int N,
+              int ch_max) {
+  extern __shared__ __align__(16) float sm[];
+  const F4Layout L(ch_max, NX);
+  const int tid = threadIdx.x;
+  const int64_t b = blockIdx.x;
+  const int nchunk = (N + ch_max - 1) / ch_max;
+  // chunk c: stages [k0, k0 + ch), the last chunk of stages first
+  auto k0_of = [&](int c) { return max(0, N - (c + 1) * ch_max); };
+  auto ch_of = [&](int c) { return N - c * ch_max - k0_of(c); };
+  auto src_of = [&](int c) {            // the first stage staged for chunk c
+    int64_t s0 = b * N + k0_of(c);
+    if (PLANT(7) && c == 1) s0 += 1;
+    return s0;
+  };
+  auto issue = [&](int c) {
+    const int ch = ch_of(c), pt = tid - 32;
+    const int64_t s0 = src_of(c);
+    float* buf = sm + c % F4_RING * L.buf;
+    stage_async(buf + L.Q, Qb + s0 * NX * NX, ch * NX * NX, pt, F4_PRODUCERS);
+    stage_async(buf + L.R, Rb + s0 * NU * NU, ch * NU * NU, pt, F4_PRODUCERS);
+    stage_async(buf + L.M, Mm + s0 * NX * NU, ch * NX * NU, pt, F4_PRODUCERS);
+    stage_async(buf + L.A, Ad + s0 * NX * NX, ch * NX * NX, pt, F4_PRODUCERS);
+    stage_async(buf + L.B, Bd + s0 * NX * NU, ch * NX * NU, pt, F4_PRODUCERS);
+  };
+
+  if (tid >= 32) {
+    for (int c = 0; c < F4_AHEAD; ++c) {
+      if (c < nchunk) issue(c);
+      __pipeline_commit();     // (an empty group past the last chunk)
+    }
+  }
+  RiccatiWarp<NX> rw(tid & 31);
+  for (int c = 0; c < nchunk; ++c) {
+    if (tid >= 32) __pipeline_wait_prior(F4_AHEAD - 1);   // chunk c is in
+    __syncthreads();           // ... and warp 0 is done with chunk c - 1
+    if (tid >= 32) {
+      // chunk c + F4_AHEAD goes where chunk c - 1 was
+      if (c + F4_AHEAD < nchunk) issue(c + F4_AHEAD);
+      __pipeline_commit();
+    } else {
+      const int k0 = k0_of(c);
+      const int64_t s0 = src_of(c);
+      float* buf = sm + c % F4_RING * L.buf;
+      const float* Qs = staged(buf + L.Q, Qb + s0 * NX * NX);
+      const float* Rs = staged(buf + L.R, Rb + s0 * NU * NU);
+      const float* Ms = staged(buf + L.M, Mm + s0 * NX * NU);
+      const float* As = staged(buf + L.A, Ad + s0 * NX * NX);
+      const float* Bs = staged(buf + L.B, Bd + s0 * NX * NU);
+      for (int s = ch_of(c) - 1; s >= 0; --s) {
+        const int64_t sk = b * N + k0 + s;
+        rw.stage(Qs + s * NX * NX, Rs + s * NU * NU, Ms + s * NX * NU,
+                 As + s * NX * NX, Bs + s * NX * NU, sm + L.rec,
+                 W + sk * NX * NX, G + sk * NU * NX, Huinv + sk * NU * NU,
+                 !(PLANT(8) && k0 + s == 17));
+      }
+    }
   }
 }
 
@@ -1045,8 +1030,6 @@ apply_fwd_kernel(const float* __restrict__ Huinv, const float* __restrict__ G,
   }
 }
 
-inline int blocks_for(int n) { return (n + THREADS - 1) / THREADS; }
-
 }  // namespace
 
 // ---------------------------------------------------------------------------
@@ -1068,8 +1051,19 @@ extern "C" int riccati_factor_f32(const float* Ad, const float* Bd,
                                   void* stream) {
   if (batch <= 0 || N <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  DISPATCH_NX(nx, factor_kernel<NX><<<blocks_for(batch), THREADS, 0, st>>>(
-                      Ad, Bd, Qb, Rb, M, Huinv, G, W, batch, N));
+  // one instance a block; a chunk: as many whole stages as a staging
+  // buffer holds
+  const int per_stage = 2 * nx * nx + 2 * nx * NU + NU * NU;
+  const int ch = max(1, min(N, F4_STAGE_FLOATS / per_stage));
+  const size_t smem = sizeof(float) * F4Layout(ch, nx).total;
+  DISPATCH_NX(nx, {
+    auto kern = factor_kernel<NX>;
+    if (smem > 48 * 1024)
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem);
+    kern<<<batch, F4_THREADS, smem, st>>>(Ad, Bd, Qb, Rb, M, Huinv, G, W, N,
+                                          ch);
+  });
   return (int)cudaGetLastError();
 }
 

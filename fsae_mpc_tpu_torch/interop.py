@@ -3,10 +3,13 @@
 The JAX package's containers are plain dataclasses of arrays; pass their
 fields as a mapping of numpy arrays (``{f: np.asarray(getattr(obj, f))}``
 or ``dataclasses.asdict``) and get the port's counterpart on a device, in
-a dtype (by default on the CUDA device, like every entry point of the
-port: a caller without a card asks for ``device="cpu"``).  Batched JAX
-data (``vmap`` outputs) already has the port's batch-first layout.
-Nothing here imports ``jax``.
+a dtype.  By default the data goes to the CUDA device, like every entry
+point of the port (a caller without a card asks for ``device="cpu"``),
+and its dtype follows the device (:func:`default_dtype`): float32 on the
+card, whose kernels take nothing else, float64 on the CPU, where the
+plain versions run the JAX package's f64 reference.  Batched JAX data
+(``vmap`` outputs) already has the port's batch-first layout.  Nothing
+here imports ``jax``.
 """
 
 from __future__ import annotations
@@ -23,7 +26,16 @@ from .ops.riccati import StageIpmResult, StageQP
 from .track.track import Track
 
 
+def default_dtype(device) -> torch.dtype:
+    """The dtype a converter picks when given none: float32 on a CUDA
+    device, float64 anywhere else."""
+    return (torch.float32 if torch.device(device).type == "cuda"
+            else torch.float64)
+
+
 def _tensor(a, dtype, device):
+    if dtype is None:
+        dtype = default_dtype(device)
     a = np.asarray(a)
     if np.issubdtype(a.dtype, np.integer):
         return torch.tensor(a, device=device)
@@ -35,7 +47,7 @@ def _fields(cls, src: Mapping, dtype, device):
                   for f in dataclasses.fields(cls)})
 
 
-def track(px, py, dl, L, dtype=torch.float64, device="cuda") -> Track:
+def track(px, py, dl, L, dtype=None, device="cuda") -> Track:
     """Track coefficients ``(px (M, 4), py (M, 4), dl, L)``."""
     return Track(px=_tensor(px, dtype, device), py=_tensor(py, dtype, device),
                  dl=_tensor(dl, dtype, device), L=_tensor(L, dtype, device))
@@ -51,19 +63,19 @@ def mpc_params(src: Mapping) -> MPCParams:
                         for f in dataclasses.fields(MPCParams)})
 
 
-def stage_qp(src: Mapping, dtype=torch.float64, device="cuda") -> StageQP:
+def stage_qp(src: Mapping, dtype=None, device="cuda") -> StageQP:
     """A (batched) ``fsae_mpc_tpu.ops.riccati.StageQP``."""
     return _fields(StageQP, src, dtype, device)
 
 
-def stage_ipm_result(src: Mapping, dtype=torch.float64,
+def stage_ipm_result(src: Mapping, dtype=None,
                      device="cuda") -> StageIpmResult:
     """A (batched) ``StageIpmResult`` -- the solver state one tick hands to
     the next as its warm start."""
     return _fields(StageIpmResult, src, dtype, device)
 
 
-def ipm_result(src: Mapping, dtype=torch.float64,
+def ipm_result(src: Mapping, dtype=None,
                device="cuda") -> IpmResult:
     """A (batched) ``fsae_mpc_tpu.ops.ipm.IpmResult`` -- the dense
     solver's state one tick hands to the next as its warm start."""

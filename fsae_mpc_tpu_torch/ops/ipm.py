@@ -351,9 +351,12 @@ def solve_qp(H, g, A, lb, ub, lbA, ubA, opts: IpmOptions = IpmOptions(),
     Shapes: H (B, n, n), g (B, n), A (B, m, n), lb/ub (B, n),
     lbA/ubA (B, m).  Infinite entries in lb/ub/lbA/ubA deactivate that
     side.  ``warm``: the :class:`IpmResult` of a previous same-shape batch;
-    primal and duals are re-seeded from it.
+    primal and duals are re-seeded from it.  On a CUDA device under
+    ``chol="auto"``, a problem the kernels cannot run (not float32, n above
+    ``kernels.chol.MAX_N``) raises ``ValueError`` before any launch.
     """
     _chol_fns(opts.chol)            # an unknown or unported choice raises
+    kchol.check_entry(H.device, H.dtype, H.shape[-1], opts.chol)
     if opts.refine_restart:
         return _refine_restart(H, g, A, lb, ub, lbA, ubA, opts, x0, warm)
 

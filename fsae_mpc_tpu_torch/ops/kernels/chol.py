@@ -47,6 +47,32 @@ _LIB = Library("chol.cu", {
 })
 
 
+# the widest KKT matrix the kernels take: chol_factor_f32 keeps the packed
+# lower triangle (4x4 tiles) in 48 KB of shared memory
+MAX_N = 152
+
+
+def check_entry(device, dtype, n: int, chol: str) -> None:
+    """Refuse, before any launch, a dense solve under ``chol="auto"`` on a
+    CUDA device that the kernels cannot run (float32, n <= MAX_N): a
+    ``ValueError`` that names the routes that run it, ``chol="lapack"``
+    (PyTorch's Cholesky, on the card) or the CPU.  Nothing falls back to
+    another route on its own.  Other devices and routes pass."""
+    if torch.device(device).type != "cuda" or chol != "auto":
+        return
+    why = []
+    if dtype != torch.float32:
+        why.append(f"dtype {dtype} (they take torch.float32)")
+    if n > MAX_N:
+        why.append(f"n={n} (they take n <= {MAX_N})")
+    if why:
+        raise ValueError(
+            "the dense Cholesky kernels (chol=\"auto\") cannot run this "
+            "problem on the card: " + "; ".join(why) + '. Choose '
+            'chol="lapack" to factor it with PyTorch on the card, or solve '
+            'it on the CPU (device="cpu")')
+
+
 def factor_ref(K):
     """Lower Cholesky factor of each (n, n) SPD matrix; an instance whose
     factorisation fails is all NaN."""

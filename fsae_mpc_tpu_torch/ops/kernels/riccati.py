@@ -239,29 +239,52 @@ _LIB = Library("riccati.cu", {
 })
 
 
-def _check(tensors: dict, shapes: dict, nx: int, ns: int | None = None):
-    """Validate what the kernels accept; raise on anything else."""
-    check_tensors(tensors, shapes)
-    if nx not in SUPPORTED_NX:
-        raise ValueError(f"nx={nx} unsupported by the kernels "
-                         f"(supported: {SUPPORTED_NX})")
-    if ns is not None and ns not in SUPPORTED_NS:
-        raise ValueError(f"ns={ns} unsupported by the kernels "
-                         f"(supported: {SUPPORTED_NS})")
-
-
-def _nu_check(nu):
+def _unsupported(nx: int, nu: int, ns: int | None = None) -> list[str]:
+    """Why the kernels cannot take these widths (empty when they can)."""
+    why = []
     if nu != 2:
-        raise ValueError(f"the kernels take nu == 2, got nu={nu}")
+        why.append(f"nu={nu} (they take nu == 2)")
+    if nx not in SUPPORTED_NX:
+        why.append(f"nx={nx} (they take nx in {SUPPORTED_NX})")
+    if ns is not None and ns not in SUPPORTED_NS:
+        why.append(f"ns={ns} (they take ns in {SUPPORTED_NS})")
+    return why
+
+
+def check_entry(device, dtype, nx: int, nu: int, ns: int) -> None:
+    """Refuse, before any launch, a stage-wise solve on a CUDA device that
+    the kernels cannot run (float32, nu == 2, nx in SUPPORTED_NX, ns in
+    SUPPORTED_NS): a ``ValueError`` that names the route that runs it, the
+    CPU.  Nothing on the card falls back to the plain versions.  A device
+    other than CUDA passes."""
+    if torch.device(device).type != "cuda":
+        return
+    why = _unsupported(nx, nu, ns)
+    if dtype != torch.float32:
+        why.insert(0, f"dtype {dtype} (they take torch.float32)")
+    if why:
+        raise ValueError(
+            "the Riccati kernels cannot run this problem on the card: "
+            + "; ".join(why) + '. Solve it on the CPU: device="cpu" '
+            "(interop.stage_qp(..., device=\"cpu\")), where the plain "
+            "versions take any dtype and width")
+
+
+def _check(tensors: dict, shapes: dict, nx: int, nu: int,
+           ns: int | None = None):
+    """Validate what the kernels accept; raise on anything else."""
+    why = _unsupported(nx, nu, ns)
+    if why:
+        raise ValueError("the kernels cannot take " + "; ".join(why))
+    check_tensors(tensors, shapes)
 
 
 def factor_cuda(Ad, Bd, Qb, Rb, M):
     Bsz, N, nx, nu = Bd.shape
-    _nu_check(nu)
     _check(dict(Ad=Ad, Bd=Bd, Qb=Qb, Rb=Rb, M=M),
            dict(Ad=(Bsz, N, nx, nx), Bd=(Bsz, N, nx, nu),
                 Qb=(Bsz, N, nx, nx), Rb=(Bsz, N, nu, nu),
-                M=(Bsz, N, nx, nu)), nx)
+                M=(Bsz, N, nx, nu)), nx, nu)
     Huinv, G, W = (empty(Ad, Bsz, N, nu, nu), empty(Ad, Bsz, N, nu, nx),
                    empty(Ad, Bsz, N, nx, nx))
     _LIB.launch(KERNELS["factor"], Ad, Bd, Qb, Rb, M, Huinv, G, W, Bsz, N,
@@ -272,12 +295,11 @@ def factor_cuda(Ad, Bd, Qb, Rb, M):
 def assemble_factor_cuda(C, D, Ws, Dr, qb_diag, rb_diag, Ad, Bd):
     Bsz, N, r, nx = C.shape
     nu, ns = D.shape[-1], Ws.shape[-1]
-    _nu_check(nu)
     _check(dict(C=C, D=D, Ws=Ws, Dr=Dr, qb_diag=qb_diag, rb_diag=rb_diag,
                 Ad=Ad, Bd=Bd),
            dict(C=(Bsz, N, r, nx), D=(Bsz, N, r, nu), Ws=(Bsz, N, r, ns),
                 Dr=(Bsz, N, r), qb_diag=(Bsz, N, nx), rb_diag=(Bsz, N, nu),
-                Ad=(Bsz, N, nx, nx), Bd=(Bsz, N, nx, nu)), nx, ns)
+                Ad=(Bsz, N, nx, nx), Bd=(Bsz, N, nx, nu)), nx, nu, ns)
     outs = (empty(C, Bsz, N, nu, nu), empty(C, Bsz, N, nu, nx),
             empty(C, Bsz, N, nx, nx), empty(C, Bsz, N, nx, nu),
             empty(C, Bsz, N, nx, ns), empty(C, Bsz, N, nu, ns),
@@ -289,7 +311,6 @@ def assemble_factor_cuda(C, D, Ws, Dr, qb_diag, rb_diag, Ad, Bd):
 
 def _apply_shapes(Huinv, G, W, Ad, Bd, M, **rhs):
     Bsz, N, nx, nu = Bd.shape
-    _nu_check(nu)
     K = next(iter(rhs.values())).shape[1]
     shapes = dict(Huinv=(Bsz, N, nu, nu), G=(Bsz, N, nu, nx),
                   W=(Bsz, N, nx, nx), Ad=(Bsz, N, nx, nx),
@@ -297,7 +318,7 @@ def _apply_shapes(Huinv, G, W, Ad, Bd, M, **rhs):
     shapes.update({k: (Bsz, K, N, nu if k in ("ru", "h") else nx)
                    for k in rhs})
     _check(dict(Huinv=Huinv, G=G, W=W, Ad=Ad, Bd=Bd, M=M, **rhs), shapes,
-           nx)
+           nx, nu)
     return Bsz, K, N, nx, nu
 
 

@@ -174,10 +174,15 @@ def solve_stage_qp(qp: StageQP, opts: IpmOptions = IpmOptions(),
     the slack gradient no longer sets the global objective scale; results
     are reported in original units except the residuals.  The
     condensed-only fields (``polish``, ``scale_kkt``, ``comp_resid``,
-    ``correctors``, ``var_scale``) raise ``ValueError`` when set.
+    ``correctors``, ``var_scale``) raise ``ValueError`` when set.  On a
+    CUDA device, a problem the kernels cannot run (not float32, nu != 2,
+    nx or ns outside what they take) raises ``ValueError`` before any
+    launch (``kernels.riccati.check_entry``).
     """
     _check_stage_opts(opts)
     ns = qp.g_s.shape[-1]
+    kriccati.check_entry(qp.Ad.device, qp.Ad.dtype, qp.Ad.shape[-1],
+                         qp.Bd.shape[-1], ns)
     if ns:
         gx = torch.maximum(
             torch.maximum(_amax(qp.Qx.abs()), _amax(qp.qx.abs())),

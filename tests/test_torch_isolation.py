@@ -134,7 +134,7 @@ def test_batched_solve_equals_single_solves(preset):
                                        atol=1e-9, err_msg=backend)
 
 
-def test_kernel_wrappers_refuse_what_they_cannot_run():
+def test_kernel_wrappers_refuse_what_they_cannot_run(monkeypatch):
     fac = _factor_inputs()
     with pytest.raises(ValueError, match="no Riccati kernel"):
         kr.factor(*[t.to("meta") for t in fac])
@@ -170,6 +170,40 @@ def test_kernel_wrappers_refuse_what_they_cannot_run():
             riccati.solve_stage_qp(
                 None, dataclasses.replace(ipm.IpmOptions(),
                                           **{field: value}))
+    # on the card, the solvers' entry check refuses what the kernels cannot
+    # run, naming the route that runs it; it reads the device type alone,
+    # so it is checked here without a card
+    cuda, cpu, f32 = torch.device("cuda"), torch.device("cpu"), torch.float32
+    kr.check_entry(cuda, f32, 7, 2, 4)              # the main path
+    kr.check_entry(cuda, f32, 5, 2, 1)              # the kinematic widths
+    for dtype, nx, nu, ns in ((F64, 7, 2, 4), (f32, 7, 3, 4),
+                              (f32, 6, 2, 4), (f32, 7, 2, 2)):
+        with pytest.raises(ValueError, match='device="cpu"'):
+            kr.check_entry(cuda, dtype, nx, nu, ns)
+        kr.check_entry(cpu, dtype, nx, nu, ns)      # the plain versions
+    for n in (84, 81):
+        kchol.check_entry(cuda, f32, n, "auto")
+    for dtype, n in ((F64, 84), (f32, kchol.MAX_N + 1)):
+        with pytest.raises(ValueError, match='chol="lapack"'):
+            kchol.check_entry(cuda, dtype, n, "auto")
+        kchol.check_entry(cuda, dtype, n, "lapack")
+        kchol.check_entry(cpu, dtype, n, "auto")
+    # ... and both solvers ask it first, with the problem's widths
+    seen = []
+
+    def spy(*args):
+        seen.append(args)
+        raise LookupError
+
+    monkeypatch.setattr(kr, "check_entry", spy)
+    monkeypatch.setattr(kchol, "check_entry", spy)
+    sqp = {f.name: None for f in dataclasses.fields(riccati.StageQP)}
+    sqp.update(Ad=fac[0], Bd=fac[1], g_s=torch.zeros((B, 4), dtype=F64))
+    with pytest.raises(LookupError):
+        riccati.solve_stage_qp(riccati.StageQP(**sqp), ipm.F32_OPTS)
+    with pytest.raises(LookupError):
+        ipm.solve_qp(*qp, ipm.F32_OPTS)
+    assert seen == [(cpu, F64, NX, NU, 4), (cpu, F64, NX, "auto")]
 
 
 def test_port_never_imports_jax():
@@ -230,3 +264,11 @@ def test_interop_carries_params_and_stage_qp():
     for name, v in src.items():
         np.testing.assert_array_equal(back[name], v)
     assert qp.Ad.dtype == F64 and qp.Ad.shape == (B, N, NX, NX)
+    # without a dtype, the data takes the device's: float32 on the card
+    # (the kernels take nothing else), float64 on the CPU
+    for dev in ("cuda", "cuda:0", torch.device("cuda", 0)):
+        assert interop.default_dtype(dev) == torch.float32
+    for dev in ("cpu", torch.device("cpu")):
+        assert interop.default_dtype(dev) == F64
+    assert interop.stage_qp(src, torch.float32, device="cpu").Ad.dtype == \
+        torch.float32

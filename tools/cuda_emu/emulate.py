@@ -18,12 +18,13 @@ batch (nx 5/7/9, ns 1/4, K = ns+1 and K = 1, N=40, r=20) runs through the
 four entry points; ``--stages`` and ``--rows`` change N and r (``--rows
 300`` splits each stage's rows over several chunks).  Each output is held
 against the plain version normwise and per instance and output block
-(tolerance ``chip_smoke.KERNEL_RTOL``).  For K1, K2 and K3 the script
+(tolerance ``chip_smoke.KERNEL_RTOL``).  For each of K1-K4 the script
 prints each launch's grid, block and dynamic shared memory, and how many
 such blocks the H100's shared memory holds per SM.
 
 chol.cu: the factor (K6) at n 84 and 81, then the solve (K7) on the plain
-factor and on K6's, held by componentwise backward error
+factor and on K6's (with each launch's grid, block and shared memory),
+held by componentwise backward error
 (``chip_smoke.chol_backward``) and normwise; and the NaN-poison case
 (``chip_smoke.chol_poisoned``: NaN from the first failing pivot on).
 
@@ -31,8 +32,8 @@ factor and on K6's, held by componentwise backward error
                   riccati.cu only): the fault's kernel must then fail its
                   check (exit 0 if it does)
   --chol-plant N  build chol.cu with ``-DCHOL_PLANT=N`` (runs chol.cu
-                  only): fault 1 must fail the backward-error check,
-                  fault 2 the NaN-poison check
+                  only): faults 1 (K6), 3 and 4 (K7) must fail the
+                  backward-error check, fault 2 the NaN-poison check
   --defer         cp.async copies land at the wait that covers them, not
                   at issue (a read before its wait then sees NaN)
   --tsan          build with ThreadSanitizer and run under it: a missing
@@ -147,7 +148,7 @@ def run_riccati(lib_path: str, batch: int, plant: int, N: int,
             for K in (ns + 1, 1):
                 x = cs.kernel_inputs(batch, N, K, cs.SEED + batch + K + nx,
                                      "cpu", nx, ns)
-                fac_in = (x["Ad"], x["Bd"], x["Qb"], x["Rb"], x["M0"])
+                fac_in = (x["Ad"], x["Bd"], x["Qb"], x["Rb"], x["M"])
                 asm_in = (x["C"], x["D"], x["Ws"], x["Dr"], x["qbd"],
                           x["rbd"], x["Ad"], x["Bd"])
                 fac_p = kr.factor_ref(*fac_in)
@@ -159,7 +160,8 @@ def run_riccati(lib_path: str, batch: int, plant: int, N: int,
                 fwd_p = kr.apply_fwd_ref(*fwd_in)
                 res, last = {}, {}
                 outs = tuple(torch.empty_like(t) for t in fac_p)
-                call("riccati_factor_f32", *fac_in, *outs, batch, N, nx)
+                last["factor"] = call("riccati_factor_f32", *fac_in, *outs,
+                                      batch, N, nx)
                 res["factor"] = errs(outs, fac_p)
                 outs = tuple(torch.empty_like(t) for t in asm_p)
                 last["assemble_factor"] = call(
@@ -207,9 +209,11 @@ def run_chol(lib_path: str, batch: int, plant: int) -> int:
         last = call("chol_factor_f32", K, L, K.shape[0], K.shape[-1])
         return L, last
 
-    def solve(L, b):
+    def solve(L, b, launches=None):
         x = torch.empty_like(b)
-        call("chol_solve_f32", L, b, x, b.shape[0], b.shape[-1])
+        last = call("chol_solve_f32", L, b, x, b.shape[0], b.shape[-1])
+        if launches is not None:
+            launches.append(launch_line("chol_solve", last))
         return x
 
     worst = {}
@@ -219,12 +223,14 @@ def run_chol(lib_path: str, batch: int, plant: int) -> int:
         L_p = kc.factor_ref(K).contiguous()
         x_p = kc.solve_ref(L_p, b)
         fac, sol = cs.chol_backward(L_p, x_p)
-        res = {"chol_factor": fac(L_k), "chol_solve": sol(solve(L_p, b)),
+        lines = [launch_line("chol_factor", last)]
+        res = {"chol_factor": fac(L_k),
+               "chol_solve": sol(solve(L_p, b, lines)),
                "chol_solve on K6's L": sol(solve(L_k, b)),
                "chol_factor normwise": cs.rel_err(L_k, L_p)}
         print(f"[B={batch} n={n}] " + ", ".join(
             f"{k} {v:.2e}" for k, v in res.items()))
-        print(launch_line("chol_factor", last))
+        print("\n".join(lines))
         for k, v in res.items():
             worst[k] = max(worst.get(k, 0.0), v)
     K, b = cs.chol_poison_inputs("cpu")
@@ -235,8 +241,8 @@ def run_chol(lib_path: str, batch: int, plant: int) -> int:
     print("worst: " + ", ".join(f"{k} {v:.3e}" for k, v in worst.items()))
     bad = [k for k, v in worst.items() if not v <= cs.KERNEL_RTOL]
     if plant:
-        caught = ("chol_factor" in bad if plant == 1
-                  else not (exact and clean))
+        caught = (not (exact and clean) if plant == 2
+                  else cs.CHOL_PLANT_KERNEL[plant] in bad)
         print(f"planted fault {plant} ({cs.CHOL_PLANTS[plant]}): "
               f"{'fails the check' if caught else 'PASSES the check'}")
         return 0 if caught else 1

@@ -1,19 +1,24 @@
 #!/usr/bin/env python3
 """Time variant builds of the port's redesigned kernels on one CUDA card,
 to see where their time goes: ``csrc/riccati.cu``'s K1 (assemble_factor),
-K2 (apply_bwd) and K3 (apply_fwd), and ``csrc/chol.cu``'s K6
-(chol_factor).
+K2 (apply_bwd), K3 (apply_fwd) and K4 (factor), and ``csrc/chol.cu``'s K6
+(chol_factor) and K7 (chol_solve).
 
-    python3 tools/kernel_variants.py
+    python3 tools/kernel_variants.py [--parent DIR]
 
 Each variant is a copy of a source with one textual change (below),
 written under ``fsae_mpc_tpu_torch/build/variants/`` and built with the
 port's nvcc flags, all copies in parallel.  Each is launched through its
 C entry point at the main path's shapes (B=1024, N=40, nx=7, r=20, ns=4;
-K2 and K3 at K=5 and K=1; K6 at n=84) on the same inputs, 3 warm-up
-launches then 50 between CUDA events; the error against the plain
-version (per instance; K6: componentwise backward error) is printed
-beside the time (a variant that skips work is wrong on purpose).
+K2 and K3 at K=5 and K=1; K6 and K7 at n=84) on the same inputs, 3
+warm-up launches then 50 between CUDA events; the error against the
+plain version (per instance; K6, K7: componentwise backward error) is
+printed beside the time (a variant that skips work is wrong on purpose).
+
+``--parent DIR``: also build ``DIR/fsae_mpc_tpu_torch/csrc/riccati.cu``
+(another checkout, e.g. the parent commit's) as the variant "parent", and
+report whether its K1 outputs equal this tree's bit for bit on the same
+inputs.
 """
 
 from __future__ import annotations
@@ -77,7 +82,21 @@ VARIANTS = {
           "if (c + BWD_AHEAD < nchunk && N < 0) issue(c + BWD_AHEAD);"),
          ("for (int e = tid; e < ch * (NX + 1); e += nthr) {",
           "for (int e = tid; e < ch * (NX + 1) && N < 0; e += nthr) {")]),
-    "k6_base": ("K6 as it is", "chol.cu", []),
+    "k4_no_recursion": (
+        "K4 staging alone",
+        "riccati.cu",
+        [("    } else {\n      const int k0 = k0_of(c);",
+          "    } else if (N < 0) {\n      const int k0 = k0_of(c);")]),
+    "k4_recursion_only": (
+        "K4 recursion alone (no loads)",
+        "riccati.cu",
+        [("  if (tid >= 32) {\n    for (int c = 0; c < F4_AHEAD; ++c) {\n"
+          "      if (c < nchunk) issue(c);",
+          "  if (tid >= 32) {\n    for (int c = 0; c < F4_AHEAD; ++c) {\n"
+          "      if (c < nchunk && N < 0) issue(c);"),
+         ("if (c + F4_AHEAD < nchunk) issue(c + F4_AHEAD);",
+          "if (c + F4_AHEAD < nchunk && N < 0) issue(c + F4_AHEAD);")]),
+    "k6_base": ("K6 and K7 as they are", "chol.cu", []),
     "k6_io_only": (
         "K6 loads and stores alone", "chol.cu",
         [("  for (int p = 0; p < nt; ++p) {\n    const int j0",
@@ -90,6 +109,25 @@ VARIANTS = {
         "K6 loads, updates, stores", "chol.cu",
         [("    if (tid < 32) {\n      // 1. the panel",
           "    if (tid < 32 && n < 0) {\n      // 1. the panel")]),
+    "k7_loads_only": (
+        "K7 loads alone", "chol.cu",
+        [("      for (int k = 0; k < 32 * p; ++k)",
+          "      for (int k = 0; k < 32 * p && n < 0; ++k)"),
+         ("    const int steps = min(32, n - 32 * p);",
+          "    const int steps = n < 0 ? min(32, n - 32 * p) : 0;"),
+         ("      for (int j = 32 * (p + 1); j < n; ++j)",
+          "      for (int j = 32 * (p + 1); j < n && n < 0; ++j)"),
+         ("    for (int jj = min(31, n - 1 - 32 * p); jj >= 0; --jj) {",
+          "    for (int jj = min(31, n - 1 - 32 * p); jj >= 0 && n < 0; "
+          "--jj) {")]),
+    "k7_sweeps_only": (
+        "K7 sweeps alone (no loads)", "chol.cu",
+        [("      __pipeline_memcpy_async(T + t,",
+          "      if (n < 0) __pipeline_memcpy_async(T + t,")]),
+    "k7_no_overlap": (
+        "K7 with every panel in before the sweeps", "chol.cu",
+        [("    __pipeline_wait_prior(SOL_SLOTS - 1 - p);",
+          "    __pipeline_wait_prior(0);")]),
 }
 
 
@@ -99,7 +137,10 @@ def build_all() -> dict:
     os.makedirs(OUT, exist_ok=True)
     procs = {}
     for name, (_, source, subs) in VARIANTS.items():
-        with open(os.path.join(build.CSRC_DIR, source)) as f:
+        src_dir = build.CSRC_DIR
+        if name == "parent":
+            src_dir = os.path.join(subs.pop(), "fsae_mpc_tpu_torch", "csrc")
+        with open(os.path.join(src_dir, source)) as f:
             text = f.read()
         for old, new in subs:
             if text.count(old) != 1:
@@ -120,11 +161,19 @@ def build_all() -> dict:
 
 
 def main() -> int:
+    import argparse
     import torch
     import chip_smoke as cs
     from fsae_mpc_tpu_torch.ops.kernels import chol as kc
     from fsae_mpc_tpu_torch.ops.kernels import riccati as kr
 
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--parent", help="a checkout whose riccati.cu's K1 is "
+                    "held against this tree's, bit for bit")
+    parent = ap.parse_args().parent
+    if parent:
+        VARIANTS["parent"] = ("the other checkout's riccati.cu",
+                              "riccati.cu", [os.path.abspath(parent)])
     libs = build_all()
     dev = torch.device("cuda", 0)
     B, N = cs.B_MAIN, cs.N_MAIN
@@ -140,11 +189,16 @@ def main() -> int:
         fwd_in = app + (x["re"],) + tuple(hw)
         cases[K] = (asm_in, asm_p, bwd_in, hw, fwd_in,
                     kr.apply_fwd_ref(*fwd_in))
+    x = cs.kernel_inputs(B, N, 1, cs.SEED + 7, dev)
+    fac_in = (x["Ad"], x["Bd"], x["Qb"], x["Rb"], x["M"])
+    fac_p = kr.factor_ref(*fac_in)
     n = cs.N_DENSE[0]
-    Kd, _ = cs.spd_inputs(B, n, cs.SEED + B + n, dev)
+    Kd, bd = cs.spd_inputs(B, n, cs.SEED + B + n, dev)
     Lp = kc.factor_ref(Kd).contiguous()
-    fac = cs.chol_backward(Lp, Lp[:, :, 0])[0]
+    xp = kc.solve_ref(Lp, bd)
+    fac, sol = cs.chol_backward(Lp, xp)
     stream = torch.cuda.current_stream().cuda_stream
+    k1_out = {}
 
     def timed(fn, reps=50):
         for _ in range(3):
@@ -173,6 +227,17 @@ def main() -> int:
             ms = timed(lambda: lib.chol_factor_f32(
                 Kd.data_ptr(), L.data_ptr(), B, n, stream))
             res.append(f"K6 n={n} {ms:.4f} ms (err {fac(L):.1e})")
+            xs = torch.empty_like(bd)
+            ms = timed(lambda: lib.chol_solve_f32(
+                Lp.data_ptr(), bd.data_ptr(), xs.data_ptr(), B, n, stream))
+            res.append(f"K7 n={n} {ms:.4f} ms (err {sol(xs):.1e})")
+        else:
+            outs = [torch.empty_like(t) for t in fac_p]
+            fargs = [t.data_ptr() for t in (*fac_in, *outs)] + [
+                B, N, cs.NX, stream]
+            ms = timed(lambda: lib.riccati_factor_f32(*fargs))
+            res.append(f"K4 {ms:.4f} ms "
+                       f"(err {cs.inst_err(outs, fac_p):.1e})")
         for K, (asm_in, asm_p, bwd_in, bwd_p, fwd_in, fwd_p) in \
                 (cases.items() if source == "riccati.cu" else ()):
             if K != 1:
@@ -182,6 +247,8 @@ def main() -> int:
                 ms = timed(lambda: lib.riccati_assemble_factor_f32(*args))
                 res.append(f"K1 {ms:.4f} ms "
                            f"(err {cs.inst_err(outs, asm_p):.1e})")
+                if name in ("base", "parent"):
+                    k1_out[name] = outs
             outs = [torch.empty_like(t) for t in bwd_p]
             args = [t.data_ptr() for t in (*bwd_in, *outs)] + [
                 B, K, N, cs.NX, stream]
@@ -196,6 +263,11 @@ def main() -> int:
                        f"(err {cs.inst_err(outs, fwd_p):.1e})")
         print(f"{name:16s} {VARIANTS[name][0]:34s} " + " | ".join(res),
               flush=True)
+    if "parent" in k1_out:
+        same = all(torch.equal(a, b) for a, b in zip(k1_out["base"],
+                                                     k1_out["parent"]))
+        print(f"K1 outputs of this tree and of {parent}, same inputs: "
+              f"{'bitwise equal' if same else 'DIFFER'}", flush=True)
     print(cs.card_line())
     return 0
 
