@@ -59,7 +59,7 @@ Phases (any failure exits non-zero before the result lines):
                  warm-tick time, peak device memory; one more warm tick of
                  each preset must not synchronise with the host
                  (``torch.cuda.set_sync_debug_mode``).
-  4. accuracy -- first-control max and mean control error against a tight
+  3b. accuracy -- first-control max and mean control error against a tight
                  f64 solve of the same QP data (the port's plain path, on
                  CPU tensors on purpose), beside the accuracy bars:
                  (a) the JAX package's accuracy regime (ACCURACY_TPU.json,
@@ -71,6 +71,23 @@ Phases (any failure exits non-zero before the result lines):
                  (c) the dense and Riccati ticks on the same x0 and
                      linearisation solve the same QP: their first controls
                      side by side, in f32 on the card and in f64.
+  4. closed loop -- ``sim.simulate`` at B=1024 laps of 20 ticks on
+                 fsg2019 with ``MPC_F32``, kinematic/dense/``F32_ACCURATE``
+                 and dynamic/Riccati/``F32_PRODUCTION``, from the origin
+                 at rest with small seeded pose offsets: ms a sim tick
+                 (CUDA events), peak memory, launch counts equal to the
+                 schedule (no cold solve, so K4 never), no host
+                 synchronisation inside ``simulate``, every trace finite,
+                 and instances 0-3 against the port's own f32 run of the
+                 same laps on the CPU (the plain versions) within
+                 ``SIM_STATE_TOL``.
+  5. timed lap -- ``sim.simulate_timed`` at B=1, dynamic/dense/
+                 ``F32_ACCURATE``, until the lap of fsg2019 is done: lap
+                 time within 0.20 s of the JAX package's f64 lap
+                 (``LAP_T64``), track violation below 0.02, launch counts
+                 equal to the schedule, and the tick times against the
+                 50 ms budget.  Phase 2 also times K1-K3 and K5-K7 at the
+                 kinematic QP's shapes (nx=5, ns=1, r=6; n=81).
 
 The last three lines of standard output are the card's name and power
 limit, one JSON object with the kernels, and
@@ -87,6 +104,9 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 B_MAIN, N_MAIN, NX, NU, R, NS = 1024, 40, 7, 2, 20, 4
+# rows a stage of the kinematic LTV QP (box [v, delta], track, lateral
+# acceleration; the two soft groups emit a lower and an upper row each)
+R_KIN = 6
 WARM_TICKS = 10
 ACC_SUBSET = 64
 SEED = 0
@@ -111,6 +131,43 @@ REC_BATCH, REC_TICKS = 32, 3
 # bars on a share of instances; this guard (10x the bars) catches a port
 # that has gone wrong, not the solver's f32 floor.
 ACC_GUARD = {"F32_PRODUCTION": (1e-1, 1e-2)}
+# phase 4, the batched closed loop: B_SIM laps of SIM_TICKS ticks in each
+# (model, backend, preset) of SIM_CONFIGS on fsg2019 with MPC_F32, from
+# the JAX package's start (the origin, at rest) offset per instance by
+# SIM_OFFSETS (dx, dy in m, dtheta in rad; instance 0 unperturbed).  The
+# first projection is warm-started at the initial guess's s = 0.0125 m,
+# so the offsets stay small.
+B_SIM, SIM_TICKS, SIM_CHECK = 1024, 20, 4
+SIM_CONFIGS = (("kinematic", "dense", "F32_ACCURATE"),
+               ("dynamic", "riccati", "F32_PRODUCTION"))
+SIM_OFFSETS = (0.3, 0.3, 0.05)
+# instances 0..SIM_CHECK-1 on the card against the same four laps run by
+# the port on the CPU in f32 (the plain versions): max |x_card - x_cpu|
+# over the ticks, per plant state [x, y, theta, x_d, y_d, theta_d,
+# delta].  SIM_F32_DIVERGENCE is the f32-against-f64 divergence of the
+# same laps and ticks on a CPU (``tools/sim_reference.py divergence``,
+# x86-64): a reordering of f32 sums cannot be held closer than f32 itself
+# comes to f64.  The tolerance is 5x that: two f32 runs may each lie that
+# far from f64 on either side (2x), and the divergence grows ~1.5x a
+# tick over the last ticks, so a run that parts a tick or two earlier
+# shows up to ~2.5x more.
+SIM_F32_DIVERGENCE = {
+    "kinematic": (2.87e-06, 3.54e-05, 3.81e-05, 8.10e-06, 3.62e-04,
+                  5.49e-04, 1.98e-04),
+    "dynamic": (4.98e-04, 5.51e-03, 3.23e-03, 2.44e-03, 1.42e-02, 2.60e-02,
+                8.03e-03)}
+SIM_STATE_TOL = {k: tuple(5.0 * v for v in d)
+                 for k, d in SIM_F32_DIVERGENCE.items()}
+# phase 5, one timed lap: B=1, dynamic / dense / MPC_F32 / F32_ACCURATE on
+# fsg2019 from the origin at rest, at most LAP_TICKS ticks, stopping when
+# the lap is done (the configuration of the JAX package's
+# tests/test_laps.py test_f32_closed_loop_equivalence).  LAP_T64: the
+# lap time of the same weights in f64 under IpmOptions(max_iters=30,
+# adaptive=False), computed on a CPU by the JAX package
+# (tools/sim_reference.py t64), since the card's machine has no JAX.
+LAP_TICKS = 700
+LAP_T64 = 21.25
+LAP_TIME_TOL, LAP_TRACK_VIOLATION = 0.20, 0.02
 # the faults compiled into riccati.cu under -DRICCATI_PLANT=n, each of
 # which the assemble_factor (1, 2), apply_fwd (3, 4), apply_bwd (5, 6) or
 # factor (7, 8) checks must fail
@@ -133,6 +190,18 @@ CHOL_PLANTS = {1: "chol_factor skips one trailing-update tile in panel 2",
                4: "chol_solve's back sweep reads column j in place of row j"}
 CHOL_PLANT_KERNEL = {1: "chol_factor", 2: "chol_factor", 3: "chol_solve",
                      4: "chol_solve"}
+
+
+def sim_scenarios(Bsz, seed=SEED):
+    """Phase 4's initial plant states (Bsz, 7), numpy: the origin at rest,
+    offset by dx, dy, dtheta drawn uniformly within SIM_OFFSETS; instance
+    0 unperturbed."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    x = np.zeros((Bsz, 7))
+    x[:, :3] = rng.uniform(-1.0, 1.0, (Bsz, 3)) * np.asarray(SIM_OFFSETS)
+    x[0] = 0.0
+    return x
 
 
 def log(msg: str) -> None:
@@ -212,19 +281,22 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
 # ---------------------------------------------------------------------------
 
 
-def kernel_inputs(Bsz, N, K, seed, device, nx=NX, ns=NS):
+def kernel_inputs(Bsz, N, K, seed, device, nx=NX, ns=NS, r=R,
+                  dr_decades=6.0):
     """Seeded, moderately conditioned stage data at the main path's widths
-    (positive row weights over six decades, as the IPM's Dr spans)."""
+    (positive row weights over ``dr_decades`` decades around 1, as the
+    IPM's Dr spans)."""
     import numpy as np
     import torch
     rng = np.random.default_rng(seed)
     Ad = np.eye(nx) + 0.05 * rng.standard_normal((Bsz, N, nx, nx))
     d = dict(
         Ad=Ad, Bd=0.1 * rng.standard_normal((Bsz, N, nx, NU)),
-        C=rng.standard_normal((Bsz, N, R, nx)),
-        D=rng.standard_normal((Bsz, N, R, NU)),
-        Ws=np.zeros((Bsz, N, R, ns)),
-        Dr=10.0 ** rng.uniform(-3.0, 3.0, (Bsz, N, R)),
+        C=rng.standard_normal((Bsz, N, r, nx)),
+        D=rng.standard_normal((Bsz, N, r, NU)),
+        Ws=np.zeros((Bsz, N, r, ns)),
+        Dr=10.0 ** rng.uniform(-0.5 * dr_decades, 0.5 * dr_decades,
+                               (Bsz, N, r)),
         qbd=rng.uniform(0.1, 2.0, (Bsz, N, nx)),
         rbd=rng.uniform(0.1, 2.0, (Bsz, N, NU)),
         rx=rng.standard_normal((Bsz, K, N, nx)),
@@ -347,17 +419,26 @@ def riccati_ops(name, B, N, nx, nu, r, ns, K):
 def kernel_phase(kr, device, card, plants):
     import torch
     results = {}
-    # the main path's shapes, then (B=37) the other template instances:
-    # nx 5/9 and ns 1 serve the kinematic and collocation controllers
-    cases = [(B_MAIN, NS + 1, NX, NS), (B_MAIN, 1, NX, NS),
-             (37, NS + 1, NX, NS)] + [
-        (37, ns + 1, nx, ns) for nx in (5, 7, 9) for ns in (1, 4)
+    # the main path's shapes, the kinematic closed loop's (nx=5, ns=1,
+    # r=6 rows a stage), then (B=37) the other template instances: nx 5/9
+    # and ns 1 serve the kinematic and collocation controllers.  Six rows
+    # on nx + nu + ns = 8 unknowns leave each stage's Gram block
+    # rank-deficient: with Dr over six decades the plain version in f32
+    # is itself 2.0e-4 normwise (8.8e-4 per instance) from f64 on this
+    # data, where no 1e-4 check of two f32 summation orders can hold; over
+    # three decades it is 1.4e-6 (5.2e-6), the main case's conditioning
+    # (2.4e-6, 9.5e-6)
+    cases = [(B_MAIN, NS + 1, NX, NS, R), (B_MAIN, 1, NX, NS, R),
+             (B_MAIN, 2, 5, 1, R_KIN), (B_MAIN, 1, 5, 1, R_KIN),
+             (37, NS + 1, NX, NS, R)] + [
+        (37, ns + 1, nx, ns, R) for nx in (5, 7, 9) for ns in (1, 4)
         if (nx, ns) != (NX, NS)]
-    for Bsz, K, nx, ns in cases:
+    for Bsz, K, nx, ns, r in cases:
         tag = f"B={Bsz} K={K}" + ("" if (nx, ns) == (NX, NS)
-                                  else f" nx={nx} ns={ns}")
+                                  else f" nx={nx} ns={ns}") + (
+            "" if r == R else f" r={r}")
         x = kernel_inputs(Bsz, N_MAIN, K, SEED + Bsz + K + nx, device, nx,
-                          ns)
+                          ns, r, 6.0 if r == R else 3.0)
         fac_args = (x["Ad"], x["Bd"], x["Qb"], x["Rb"], x["M"])
         asm_args = (x["C"], x["D"], x["Ws"], x["Dr"], x["qbd"], x["rbd"],
                     x["Ad"], x["Bd"])
@@ -385,7 +466,7 @@ def kernel_phase(kr, device, card, plants):
             "assemble_factor": (asm_args, asm_p),
             "apply_bwd": (app_args + rhs, hw_p),
             "apply_fwd": (app_args + (x["re"],) + tuple(hw_p), fwd_p)},
-            (Bsz, N_MAIN, R, nx, ns, K), tag)
+            (Bsz, N_MAIN, r, nx, ns, K), tag)
         if Bsz == B_MAIN:
             times = {
                 "factor": (lambda: kr.factor_cuda(*fac_args),
@@ -410,12 +491,13 @@ def kernel_phase(kr, device, card, plants):
                 pms = cuda_ms(fp, 3, warmup=1)
                 ins, outs = io[name]
                 bms, by = bound(nbytes(*ins, *outs), riccati_ops(
-                    name, Bsz, N_MAIN, nx, NU, R, ns, K))
+                    name, Bsz, N_MAIN, nx, NU, r, ns, K))
                 log(f"time {name:16s} [{tag}] kernel {ms:.4f} ms (eager "
                     f"loop {eager:.4f} ms), plain {pms:.4f} ms, bound "
                     f"{bms:.4f} ms ({by}); no single PyTorch call computes "
                     f"it  ({card})")
-                key = "" if K == NS + 1 else "_k1"
+                key = (("" if nx == NX else "_kin")
+                       + ("" if K == ns + 1 else "_k1"))
                 results[name].update({"ms" + key: ms, "plain_ms" + key: pms,
                                       "bound_ms" + key: bms,
                                       "bound_by" + key: by})
@@ -615,7 +697,7 @@ def dense_kernel_phase(device, card, chol_plants):
     from fsae_mpc_tpu_torch.ops.kernels import condense as kcd
 
     results = {}
-    for Bsz, nx in ((B_MAIN, NX), (37, NX), (37, 5)):
+    for Bsz, nx in ((B_MAIN, NX), (B_MAIN, 5), (37, NX), (37, 5)):
         tag = f"B={Bsz} nx={nx}"
         rng = np.random.default_rng(SEED + Bsz + nx)
         as_t = lambda a: torch.tensor(a, dtype=torch.float32, device=device)
@@ -635,8 +717,10 @@ def dense_kernel_phase(device, card, chol_plants):
             log(f"time {'condense':16s} [{tag}] kernel {ms:.4f} ms, plain "
                 f"{pms:.4f} ms, bound {bms:.4f} ms ({by}); no single "
                 f"PyTorch call computes it  ({card})")
-            results["condense"].update(ms=ms, plain_ms=pms, bound_ms=bms,
-                                       bound_by=by, library_ms=None)
+            key = "" if nx == NX else "_kin"
+            results["condense"].update({
+                "ms" + key: ms, "plain_ms" + key: pms, "bound_ms" + key: bms,
+                "bound_by" + key: by, "library_ms" + key: None})
 
     for n in N_DENSE:
         for Bsz in (B_MAIN, 37):
@@ -662,7 +746,7 @@ def dense_kernel_phase(device, card, chol_plants):
             compare("chol_solve", (x_k,), (x_p,), results, tag)
             chol_entrywise(K, b, L_k, L_p, x_k, x_p, x_kk, tag, planted,
                            planted_x)
-            if Bsz != B_MAIN or n != N_DENSE[0]:
+            if Bsz != B_MAIN:
                 continue
             tri = n * (n + 1) // 2
             cases = {
@@ -688,8 +772,11 @@ def dense_kernel_phase(device, card, chol_plants):
                 log(f"time {name:16s} [{tag}] kernel {ms:.4f} ms, plain "
                     f"{pms:.4f} ms, {lib} {lms:.4f} ms, bound {bms:.4f} ms "
                     f"({by})  ({card})")
-                results[name].update(ms=ms, plain_ms=pms, library_ms=lms,
-                                     bound_ms=bms, bound_by=by)
+                key = "" if n == N_DENSE[0] else "_kin"
+                results[name].update({
+                    "ms" + key: ms, "plain_ms" + key: pms,
+                    "library_ms" + key: lms, "bound_ms" + key: bms,
+                    "bound_by" + key: by})
 
     # NaN poison: instances 5 and 9 of 37 are indefinite; planted fault 2
     # must fail the same check
@@ -845,37 +932,43 @@ def launches() -> dict:
             for name, k in mod.KERNELS.items()}
 
 
-def schedule_of(backend, opts, ticks):
-    """Kernel launches of one cold solve and ``ticks - 1`` warm ticks.
-    Riccati: the cold start adds one factor and one apply; each IPM
-    iteration runs one assemble_factor and a K=ns+1 and a K=1 apply.
-    Dense: one condense per tick; the cold (centered) start adds one
-    Cholesky factor and solve; each iteration factors once and solves
-    twice (predictor, corrector; these presets have no scale_kkt,
-    correctors or polish)."""
-    assert not (opts.scale_kkt or opts.correctors or opts.polish)
+def schedule_of(backend, opts, ticks, cold=1):
+    """Kernel launches of ``ticks`` ticks, the first ``cold`` of them cold
+    (no warm start; the closed loop's first tick has a zero warm start, so
+    it passes ``cold=0``).  Riccati: a cold start adds one factor and one
+    apply; each IPM iteration runs one assemble_factor and a K=ns+1 and a
+    K=1 apply.  Dense: one condense per tick; a cold (centered) start adds
+    one Cholesky factor and solve; each iteration factors once and solves
+    twice (predictor, corrector), and ``scale_kkt`` doubles every solve
+    (one refinement backsolve); no preset here has correctors or
+    polish."""
+    assert not (opts.correctors or opts.polish)
     iters = opts.max_iters + opts.refine_restart * opts.refine_iters
+    per_solve = 2 if opts.scale_kkt else 1
     exp = {k: 0 for k in launches()}
     if backend == "riccati":
-        exp.update(factor=1, assemble_factor=iters * ticks,
-                   apply_bwd=1 + 2 * iters * ticks,
-                   apply_fwd=1 + 2 * iters * ticks)
+        exp.update(factor=cold, assemble_factor=iters * ticks,
+                   apply_bwd=cold + 2 * iters * ticks,
+                   apply_fwd=cold + 2 * iters * ticks)
     else:
-        exp.update(condense=ticks, chol_factor=1 + iters * ticks,
-                   chol_solve=1 + 2 * iters * ticks)
+        exp.update(condense=ticks, chol_factor=cold + iters * ticks,
+                   chol_solve=per_solve * (cold + 2 * iters * ticks))
     return exp, iters
 
 
-def kernel_ms_per_tick(backend, kres, iters):
-    """The hand kernels' share of a warm tick: per-launch times (phase 2)
-    times launches per warm tick."""
+def kernel_ms_per_tick(backend, kres, iters, key="", per_solve=1):
+    """The hand kernels' share of a warm tick: per-launch times (phase 2;
+    ``key`` "_kin": at the kinematic QP's shapes) times launches per warm
+    tick."""
     if backend == "riccati":
-        return iters * (kres["assemble_factor"]["ms"]
-                        + kres["apply_bwd"]["ms"] + kres["apply_fwd"]["ms"]
-                        + kres["apply_bwd"]["ms_k1"]
-                        + kres["apply_fwd"]["ms_k1"])
-    return kres["condense"]["ms"] + iters * (kres["chol_factor"]["ms"]
-                                             + 2 * kres["chol_solve"]["ms"])
+        return iters * (kres["assemble_factor"]["ms" + key]
+                        + kres["apply_bwd"]["ms" + key]
+                        + kres["apply_fwd"]["ms" + key]
+                        + kres["apply_bwd"]["ms" + key + "_k1"]
+                        + kres["apply_fwd"]["ms" + key + "_k1"])
+    return kres["condense"]["ms" + key] + iters * (
+        kres["chol_factor"]["ms" + key]
+        + 2 * per_solve * kres["chol_solve"]["ms" + key])
 
 
 def build_qp(backend, ltv, model, xc, x_ref, xl, ul):
@@ -981,7 +1074,6 @@ def sync_check(backend, out, model):
     """The f32 tick must not synchronise with the host (so that a later
     change can capture it in a CUDA graph): one more warm tick of each
     preset under ``torch.cuda.set_sync_debug_mode("warn")``."""
-    import warnings
     import torch
     from fsae_mpc_tpu_torch.mpc import ltv
     from fsae_mpc_tpu_torch.ops import ipm
@@ -991,31 +1083,38 @@ def sync_check(backend, out, model):
                        ("F32_PRODUCTION", ipm.F32_PRODUCTION)):
         xc, x_ref, xl, ul, res = out[name]["last"]
         torch.cuda.synchronize()
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            torch.cuda.set_sync_debug_mode("warn")
-            try:
-                qp = build_qp(backend, ltv, model, xc, x_ref, xl, ul)
-                n_build = len(caught)
-                solve_built(backend, qp, opts, res.qp)
-            finally:
-                torch.cuda.set_sync_debug_mode("default")
+        qp, build = sync_debug(lambda: build_qp(backend, ltv, model, xc,
+                                                x_ref, xl, ul))
+        _, solve = sync_debug(lambda: solve_built(backend, qp, opts,
+                                                  res.qp))
         torch.cuda.synchronize()
-        # the mode's own notice ("a prototype feature") is not a sync
-        syncs = [i for i, w in enumerate(caught)
-                 if "called a synchronizing" in str(w.message)]
-        counts[name] = (sum(i < n_build for i in syncs),
-                        sum(i >= n_build for i in syncs))
-        sites = sorted({f"{os.path.relpath(caught[i].filename, ROOT)}:"
-                        f"{caught[i].lineno}" for i in syncs})
+        counts[name] = (len(build), len(solve))
         log(f"host syncs {backend} {name}: QP build {counts[name][0]}, "
-            f"solve {counts[name][1]}  {sites[:8]}")
+            f"solve {counts[name][1]}  {sorted(set(build + solve))[:8]}")
     check(all(v == (0, 0) for v in counts.values()),
           f"the {backend} f32 tick synchronises with the host: {counts}")
 
 
+def sync_debug(fn):
+    """Run ``fn`` under ``torch.cuda.set_sync_debug_mode("warn")``; returns
+    its result and the sites of the host synchronisations it made."""
+    import warnings
+    import torch
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    # the mode's own notice ("a prototype feature") is not a sync
+    return out, [f"{os.path.relpath(w.filename, ROOT)}:{w.lineno}"
+                 for w in caught
+                 if "called a synchronizing" in str(w.message)]
+
+
 # ---------------------------------------------------------------------------
-# phase 4: accuracy against a tight f64 solve
+# phase 3b: accuracy against a tight f64 solve
 # ---------------------------------------------------------------------------
 
 
@@ -1146,9 +1245,197 @@ def accuracy_same_qp(out, dense_refs, model):
           "first-control bar")
 
 
+# ---------------------------------------------------------------------------
+# phase 4: the batched closed loop
+# ---------------------------------------------------------------------------
+
+
+def sim_phase(model, device, card, kres):
+    """``sim.simulate`` at B_SIM laps for SIM_TICKS ticks in each of
+    SIM_CONFIGS: launch counts equal to the schedule (no cold term; K4
+    never), no host synchronisation, every trace finite, instances
+    0..SIM_CHECK-1 against the port's own f32 run of the same laps on the
+    CPU.  Returns the launch counts of each run."""
+    import torch
+    from fsae_mpc_tpu_torch.ops import ipm
+    from fsae_mpc_tpu_torch.sim import SimConfig, simulate
+    from fsae_mpc_tpu_torch.sim.closed_loop import CONV_THRESHOLDS
+
+    track, params, mpc = model
+    x_init = sim_scenarios(B_SIM)
+    x_t = torch.tensor(x_init, dtype=torch.float32, device=device)
+    track_cpu = track.to("cpu")
+    counts = []
+    for name, backend, preset in SIM_CONFIGS:
+        opts = getattr(ipm, preset)
+        tag = f"{name}/{backend}/{preset}"
+        cfg = SimConfig(model=name, qp_backend=backend, n_ticks=SIM_TICKS,
+                        mpc=mpc, ipm=opts)
+        exp, iters = schedule_of(backend, opts, SIM_TICKS, cold=0)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+
+        def run():
+            start.record()
+            out = simulate(track, params, cfg, x_t)
+            end.record()
+            return out
+
+        t0 = time.perf_counter()
+        out, syncs = sync_debug(run)
+        torch.cuda.synchronize()
+        host_s = time.perf_counter() - t0
+        got = launches()
+        tick_ms = start.elapsed_time(end) / SIM_TICKS
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        log(f"sim {tag}: {tick_ms:.2f} ms a sim tick at B={B_SIM} (CUDA "
+            f"events over {SIM_TICKS} ticks, the first included; host "
+            f"{1e3 * host_s / SIM_TICKS:.2f} ms), "
+            f"{B_SIM * 1e3 / tick_ms:.1f} instance-ticks/s, peak device "
+            f"memory {peak_gb:.3f} GB  ({card})")
+        log(f"sim {tag}: launches {got}, schedule {exp} (per tick "
+            f"{ {k: v // SIM_TICKS for k, v in exp.items() if v} })")
+        check(got == exp, f"sim {tag}: launches {got} != schedule {exp}")
+        check(got["factor"] == 0, f"sim {tag}: K4 launched")
+        log(f"sim {tag}: host syncs inside simulate {len(syncs)} "
+            f"{sorted(set(syncs))[:8]}")
+        check(not syncs, f"sim {tag}: simulate synchronises with the host")
+        key = "_kin" if name == "kinematic" else ""
+        k_ms = kernel_ms_per_tick(backend, kres, iters, key,
+                                  2 if opts.scale_kkt else 1)
+        log(f"sim {tag}: hand kernels ~{k_ms:.2f} ms of the {tick_ms:.2f} "
+            f"ms sim tick ({100 * k_ms / tick_ms:.1f}%; per-launch times "
+            "x launches)")
+        traces = {f: getattr(out, f) for f in (
+            "x_history", "u_history", "n_history", "obj_history", "slack_n",
+            "slack_tyre", "qp_pres", "qp_mu", "fcr")}
+        bad = [f for f, t in traces.items() if not bool(
+            torch.isfinite(t).all())]
+        check(not bad, f"sim {tag}: non-finite traces {bad}")
+        act = out.active.float()
+        log(f"sim {tag}: lap done {int(out.lap_done.sum())} of {B_SIM}, "
+            f"mean |n| {float(out.n_history.abs().mean()):.4f} m, plant "
+            f"speed at the end {float(out.x_history[:, -1, 3].mean()):.3f}"
+            f" m/s, abnormal exits {float(out.abnormal_exit_frac.mean()):.3f}"
+            f" (bar {CONV_THRESHOLDS[backend]}), active share "
+            f"{float(act.mean()):.3f}")
+        sim_breakdown(tag, cfg, model, out.x_history[:, -1], tick_ms, card)
+        # the same laps on the CPU in f32, through the plain versions
+        t0 = time.perf_counter()
+        ref = simulate(track_cpu, params, cfg,
+                       torch.tensor(x_init[:SIM_CHECK], dtype=torch.float32))
+        cpu_s = time.perf_counter() - t0
+        d = (out.x_history[:SIM_CHECK].cpu().double()
+             - ref.x_history.double()).abs().amax((0, 1))
+        tol = SIM_STATE_TOL[name]
+        log(f"sim {tag}: instances 0-{SIM_CHECK - 1} card vs CPU f32, max "
+            f"|dx| per state {[f'{v:.2e}' for v in d.tolist()]}, tol "
+            f"{[f'{v:.2e}' for v in tol]} (CPU run {cpu_s:.1f} s)")
+        check(all(a <= b for a, b in zip(d.tolist(), tol)),
+              f"sim {tag}: card and CPU laps differ beyond the tolerance")
+        counts.append({k: v for k, v in got.items() if v})
+    return counts
+
+
+def sim_breakdown(tag, cfg, model, x, tick_ms, card):
+    """Where a sim tick's time goes: each of its parts timed alone at the
+    batch's last plant states (CUDA events, 3 calls after one more): the
+    projection, the reference, the QP tick (from the first tick's guess
+    and zero warm start) and the 10 PID+RK6 plant substeps; the rest
+    (freezing, tyre force, convergence flags) is the difference."""
+    import torch
+    from fsae_mpc_tpu_torch.models import transforms
+    from fsae_mpc_tpu_torch.mpc import ltv
+    from fsae_mpc_tpu_torch.sim import closed_loop as cl
+
+    track, params, mpc = model
+    Bsz = x.shape[0]
+    x_opt, u_opt = cl._initial_guess(cfg, Bsz, x.dtype, x.device)
+    warm = cl._zero_warm(cfg, Bsz, x.dtype, x.device)
+    s, n, mu = transforms.cartesian_to_curvilinear(
+        x[:, 0], x[:, 1], x[:, 2], track, x_opt[:, 0, 0])
+    if cfg.model == "kinematic":
+        x0 = torch.stack([s, n, mu, torch.hypot(x[:, 3], x[:, 4]), x[:, 6]],
+                         -1)
+    else:
+        x0 = torch.stack([s, n, mu, x[:, 3], x[:, 4], x[:, 5], x[:, 6]], -1)
+    x_ref = cl._reference(cfg, x0, x[:, 3])
+    base = (ltv.ltv_mpc_kinematic if cfg.model == "kinematic"
+            else ltv.ltv_mpc_dynamic)
+    pids = (torch.zeros_like(x[:, 0]), torch.zeros_like(x[:, 0]))
+    parts = {
+        "projection": lambda: transforms.cartesian_to_curvilinear(
+            x[:, 0], x[:, 1], x[:, 2], track, x_opt[:, 0, 0]),
+        "reference": lambda: cl._reference(cfg, x0, x[:, 3]),
+        "QP tick": lambda: base(x0, x_ref, track, params, mpc, x_opt, u_opt,
+                                cfg.ipm, warm=warm, backend=cfg.qp_backend),
+        "plant substeps": lambda: cl.plant_substeps(
+            x, x[:, 3] + 1.0, x[:, 6], (pids, pids), params, mpc.dt,
+            cfg.n_substeps),
+    }
+    ms = {k: cuda_ms(fn, 3, warmup=1) for k, fn in parts.items()}
+    rest = tick_ms - sum(ms.values())
+    log(f"sim {tag}: sim tick {tick_ms:.2f} ms = " + ", ".join(
+        f"{k} {v:.2f}" for k, v in ms.items()) + f", rest {rest:.2f} ms "
+        f"(each part alone, CUDA events)  ({card})")
+
+
+# ---------------------------------------------------------------------------
+# phase 5: one timed lap
+# ---------------------------------------------------------------------------
+
+
+def lap_phase(model, card):
+    """``sim.simulate_timed`` at B=1 until the lap is done: lap done, its
+    time within LAP_TIME_TOL of the f64 lap, bounded track violation,
+    launches equal to the schedule (the discarded first tick included),
+    and the tick times against the 50 ms budget.  Returns the launch
+    counts."""
+    from fsae_mpc_tpu_torch.ops import ipm
+    from fsae_mpc_tpu_torch.sim import SimConfig, simulate_timed
+    from fsae_mpc_tpu_torch.sim.closed_loop import CONV_THRESHOLDS
+
+    track, params, mpc = model
+    cfg = SimConfig(model="dynamic", qp_backend="dense", n_ticks=LAP_TICKS,
+                    mpc=mpc, ipm=ipm.F32_ACCURATE)
+    reset_launches()
+    t0 = time.perf_counter()
+    out, timing = simulate_timed(track, params, cfg)
+    wall = time.perf_counter() - t0
+    got = launches()
+    n = timing["n_ticks_timed"]
+    exp, _ = schedule_of("dense", cfg.ipm, n + 1, cold=0)
+    lap_time = float(out.lap_time[0])
+    viol = float(out.track_violation[0])
+    log(f"lap dynamic/dense/F32_ACCURATE B=1: {n} ticks timed ({wall:.1f} s"
+        f" wall), tick mean {1e3 * timing['tick_time_mean_s']:.2f} ms, "
+        f"median {1e3 * timing['tick_time_median_s']:.2f}, p99 "
+        f"{1e3 * timing['tick_time_p99_s']:.2f}, max "
+        f"{1e3 * timing['tick_time_max_s']:.2f} against the "
+        f"{1e3 * timing['budget_s']:.0f} ms budget (host clock)  ({card})")
+    log(f"lap: done {bool(out.lap_done[0])}, lap time {lap_time:.2f} s "
+        f"(f64 {LAP_T64:.2f} s, tol {LAP_TIME_TOL}), track violation "
+        f"{viol:.4f} (bound {LAP_TRACK_VIOLATION}), max "
+        f"{float(out.max_track_violation[0]):.4f}, tyre violation "
+        f"{float(out.tyre_violation[0]):.4f}, abnormal exits "
+        f"{float(out.abnormal_exit_frac[0]):.3f} (bar "
+        f"{CONV_THRESHOLDS['dense']})")
+    log(f"lap: launches {got}, schedule {exp}")
+    check(bool(out.lap_done[0]), "lap: not done")
+    check(abs(lap_time - LAP_T64) <= LAP_TIME_TOL,
+          f"lap: time {lap_time:.2f} s, f64 {LAP_T64:.2f} s")
+    check(viol < LAP_TRACK_VIOLATION, f"lap: track violation {viol:.4f}")
+    check(got == exp, f"lap: launches {got} != schedule {exp}")
+    return {k: v for k, v in got.items() if v}
+
+
 def kernel_line(kres, paths):
-    """The ``kernels`` JSON object: every kernel with its launches on its
-    main path's run, its parity and its times beside its bound."""
+    """The ``kernels`` JSON object: every kernel with its launches on the
+    paths' runs (phases 3, 4 and 5, summed), its parity and its times (at
+    the main path's shapes) beside its bound."""
     out = []
     for source, mod in kernel_modules().items():
         for name, k in mod.KERNELS.items():
@@ -1157,7 +1444,7 @@ def kernel_line(kres, paths):
                 "name": name, "route": "cuda",
                 "source": f"fsae_mpc_tpu_torch/csrc/{source}",
                 "replaces": k.replaces,
-                "launches": next(p[name] for p in paths if name in p),
+                "launches": sum(p.get(name, 0) for p in paths),
                 "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                 "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
@@ -1222,6 +1509,8 @@ def main() -> int:
         accuracy_warm_chain("riccati", outs["riccati"], model)
         dense_refs = accuracy_warm_chain("dense", outs["dense"], model)
         accuracy_same_qp(outs["dense"], dense_refs, model)
+        paths.extend(sim_phase(model, device, card, kres))
+        paths.append(lap_phase(model, card))
         line = kernel_line(kres, paths)
     except Fail as e:
         log(f"FAIL: {e}")

@@ -21,8 +21,9 @@ import numpy as np
 import torch
 
 from .config import MPCParams, VehicleParams
-from .ops.ipm import IpmResult
+from .ops.ipm import IpmOptions, IpmResult
 from .ops.riccati import StageIpmResult, StageQP
+from .sim.closed_loop import SimConfig, SimOutputs
 from .track.track import Track
 
 
@@ -37,7 +38,7 @@ def _tensor(a, dtype, device):
     if dtype is None:
         dtype = default_dtype(device)
     a = np.asarray(a)
-    if np.issubdtype(a.dtype, np.integer):
+    if np.issubdtype(a.dtype, np.integer) or a.dtype == np.bool_:
         return torch.tensor(a, device=device)
     return torch.tensor(a, dtype=dtype, device=device)
 
@@ -61,6 +62,26 @@ def vehicle_params(src: Mapping) -> VehicleParams:
 def mpc_params(src: Mapping) -> MPCParams:
     return MPCParams(**{f.name: type(f.default)(np.asarray(src[f.name]))
                         for f in dataclasses.fields(MPCParams)})
+
+
+def ipm_options(src: Mapping) -> IpmOptions:
+    return IpmOptions(**{f.name: src[f.name]
+                         for f in dataclasses.fields(IpmOptions)})
+
+
+def sim_config(src: Mapping) -> SimConfig:
+    """A ``fsae_mpc_tpu.sim.closed_loop.SimConfig`` given by its fields
+    (``dataclasses.asdict``: ``mpc`` and ``ipm`` as mappings too).  The
+    NMPC modes' own fields are dropped: those modes raise in the port."""
+    kw = {f.name: src[f.name] for f in dataclasses.fields(SimConfig)}
+    kw.update(mpc=mpc_params(src["mpc"]), ipm=ipm_options(src["ipm"]))
+    return SimConfig(**kw)
+
+
+def sim_outputs(src: Mapping, dtype=None, device="cuda") -> SimOutputs:
+    """A (batched: traces (B, T, ...), summaries (B,)) ``SimOutputs``;
+    boolean and integer fields keep their kind."""
+    return _fields(SimOutputs, src, dtype, device)
 
 
 def stage_qp(src: Mapping, dtype=None, device="cuda") -> StageQP:

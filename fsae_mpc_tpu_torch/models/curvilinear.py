@@ -15,6 +15,27 @@ import torch
 from ..config import VehicleParams
 
 
+def f_curv_kin(x, u, track, params: VehicleParams = VehicleParams()):
+    """Kinematic bicycle in curvilinear coordinates.
+
+    State ``[s, n, mu, v, delta]``, control ``[a, delta_d]``.
+    """
+    s, n, mu, v, delta = x
+    k = track.curvature(s.detach())
+    beta = torch.arctan(params.lr_ratio * torch.tan(delta))
+    c = torch.cos(mu + beta)
+    sn = torch.sin(mu + beta)
+    denom = 1.0 / (1.0 - n * k)
+    s_dot = v * c * denom
+    return torch.stack([
+        s_dot,
+        v * sn,
+        v * torch.sin(beta) / params.lr - s_dot * k,
+        u[0],
+        u[1],
+    ])
+
+
 def f_curv_dyn(x, u, track, params: VehicleParams = VehicleParams()):
     """Dynamic (Pacejka) bicycle in curvilinear coordinates.
 
@@ -82,3 +103,9 @@ def rear_lateral_force(x, params: VehicleParams = VehicleParams()):
     q = rear_slip_quantities(x, params)
     Fzr = params.m * params.g * params.lf / (params.lr + params.lf)
     return Fzr * pacejka(q["alpha_r"], params)
+
+
+def curvilinear_kinematic_bicycle(x, u, dt, track,
+                                  params: VehicleParams = VehicleParams()):
+    """One Euler step of the curvilinear kinematic model."""
+    return x + dt * f_curv_kin(x, u, track, params)

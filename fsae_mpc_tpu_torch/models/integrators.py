@@ -1,6 +1,5 @@
 """Explicit Runge-Kutta steps + discrete-step linearisation (port of
-``fsae_mpc_tpu.models.integrators``; the rk6 plant step is not ported
-yet).
+``fsae_mpc_tpu.models.integrators``).
 
 ``linearize_discrete`` differentiates the discrete step with
 ``torch.func.jacfwd`` and batches it with ``torch.func.vmap`` over every
@@ -34,7 +33,28 @@ def rk4_step(f, x, u, dt):
     return x + dt * (k1 + 2.0 * k2 + 2.0 * k3 + k4) / 6.0
 
 
-STEPPERS = {"euler": euler_step, "rk2": rk2_step, "rk4": rk4_step}
+def rk6_step(f, x, u, dt):
+    """The six-stage explicit RK step of the simulation plant, with the
+    JAX package's tableau verbatim, quirks included: the k5 stage combines
+    ``7/27*k2 + 10/27*k2`` (k3 is unused there).  The plant is the closed
+    loop's ground truth, so the reference's coefficients beat textbook
+    ones."""
+    k1 = f(x, u)
+    k2 = f(x + k1 * dt / 2.0, u)
+    k3 = f(x + k1 * dt / 4.0 + k2 * dt / 8.0, u)
+    k4 = f(x - k2 * dt + 2.0 * k3 * dt, u)
+    k5 = f(x + (7.0 / 27.0) * k2 * dt + (10.0 / 27.0) * k2 * dt
+           + k4 * dt / 27.0, u)
+    k6 = f(x + (28.0 / 625.0) * k1 * dt - k2 * dt / 5.0
+           + (546.0 / 625.0) * k3 * dt + (54.0 / 625.0) * k4 * dt
+           - (378.0 / 625.0) * k5 * dt, u)
+    fbar = (k1 / 24.0 + 5.0 / 48.0 * k4 + 27.0 / 56.0 * k5
+            + 125.0 / 336.0 * k6)
+    return x + dt * fbar
+
+
+STEPPERS = {"euler": euler_step, "rk2": rk2_step, "rk4": rk4_step,
+            "rk6": rk6_step}
 
 
 @_highest_precision

@@ -86,6 +86,17 @@ def state_box_group(idx, lb, ub, slack_idx, x_lin, u_lin, state_rows=None):
                            state_rows=state_rows)
 
 
+def kinematic_tyre_group(x_lin, u_lin, mpc: MPCParams, params: VehicleParams,
+                         slack: int, state_rows=None):
+    """Kinematic lateral-acceleration proxy |v^2 delta / (lr+lf)| <=
+    ay_max."""
+    def g(x, u):
+        return (x[3] ** 2 * x[4] / (params.lr + params.lf))[None]
+
+    return linearize_group(g, x_lin, u_lin, [-mpc.ay_max], [mpc.ay_max],
+                           [slack], state_rows=state_rows)
+
+
 def dynamic_slip_group(x_lin, u_lin, mpc: MPCParams, params: VehicleParams,
                        slack_rear: int, slack_front: int):
     """Slip-angle linear-region constraints |alpha_r|, |alpha_f| <= slip_max

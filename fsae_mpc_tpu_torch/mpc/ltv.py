@@ -1,9 +1,10 @@
-"""Dynamic-model LTV-MPC ticks (port of the dynamic controller of
-``fsae_mpc_tpu.mpc.ltv``; the kinematic controller is not ported yet).
+"""LTV-MPC ticks of the dynamic and the kinematic model (port of
+``fsae_mpc_tpu.mpc.ltv``).
 
-Per tick and per instance of the batch: linearise the RK4 step of the
-curvilinear dynamic model along the previous trajectory and build the
-slip/friction/track constraint rows, then either
+Per tick and per instance of the batch: linearise the discrete step of
+the curvilinear model (dynamic: RK4, with slip, friction-polygon and
+track rows; kinematic: RK2, with the lateral-acceleration proxy and the
+track row) along the previous trajectory, then either
 
   * (``backend="dense"``, the default) condense the horizon
     (``CONDENSERS``), assemble the condensed QP over the N*nu controls and
@@ -288,25 +289,95 @@ def _dynamic_groups(x_lin, u_lin, mpc, params):
     ]
 
 
-def _linearise_dynamic(track, params: VehicleParams, mpc: MPCParams,
-                       x_lin, u_lin, stepper: str):
+def _kinematic_groups(x_lin, u_lin, mpc, params):
+    return [
+        cons.state_box_group([3, 4],
+                             np.array([0.0, -mpc.delta_max]),
+                             np.array([np.inf, mpc.delta_max]),
+                             np.array([-1, -1]), x_lin, u_lin),
+        cons.state_box_group([1], np.array([-mpc.n_max]),
+                             np.array([mpc.n_max]), np.array([0]),
+                             x_lin, u_lin),
+        cons.kinematic_tyre_group(x_lin, u_lin, mpc, params, slack=0),
+    ]
+
+
+# per model: the curvilinear ODE, the constraint groups and the slack
+# weights (dynamic: track, rear slip, front slip, friction polygon;
+# kinematic: track, shared by the lateral-acceleration rows)
+_MODELS = {
+    "dynamic": (cm.f_curv_dyn_only, _dynamic_groups,
+                lambda mpc: [mpc.w_track, mpc.w_slip, mpc.w_slip,
+                             mpc.w_tyre]),
+    "kinematic": (cm.f_curv_kin, _kinematic_groups,
+                  lambda mpc: [mpc.w_track]),
+}
+
+
+def _linearise(model: str, track, params: VehicleParams, mpc: MPCParams,
+               x_lin, u_lin, stepper: str):
     """The tick's shared first layer: the discrete linearisation
     (Ad, Bd, dd), the cost weights q (nx,) and r_ab (nu,), the constraint
-    groups and the control bounds."""
+    groups, the control bounds and the slack weights."""
+    f_curv, groups_of, r_soft = _MODELS[model]
     dtype, dev = x_lin.dtype, x_lin.device
-    Bsz = x_lin.shape[0]
-    f = lambda x, u: cm.f_curv_dyn_only(x, u, track, params)
+    Bsz, nx = x_lin.shape[0], x_lin.shape[-1]
+    f = lambda x, u: f_curv(x, u, track, params)
     step = lambda x, u: integrators.STEPPERS[stepper](f, x, u, mpc.dt)
     Ad, Bd, dd = integrators.linearize_discrete(step, x_lin, u_lin)
-    q = _const([mpc.q_s, mpc.q_n, mpc.q_mu, 0.0, 0.0, 0.0, 0.0], dtype, dev)
+    q = _const([mpc.q_s, mpc.q_n, mpc.q_mu] + [0.0] * (nx - 3), dtype, dev)
     r_ab = _const([mpc.r_a, mpc.r_delta_d], dtype, dev)
-    groups = _dynamic_groups(x_lin, u_lin, mpc, params)
+    groups = groups_of(x_lin, u_lin, mpc, params)
     u_lb, u_ub = _control_bounds(mpc, Bsz, mpc.n_steps, dtype, dev)
-    return Ad, Bd, dd, q, r_ab, groups, u_lb, u_ub
+    return Ad, Bd, dd, q, r_ab, groups, u_lb, u_ub, r_soft(mpc)
 
 
-def _r_soft(mpc: MPCParams):
-    return [mpc.w_track, mpc.w_slip, mpc.w_slip, mpc.w_tyre]
+def _build_stage(model, x0, x_ref, track, params, mpc, x_lin, u_lin,
+                 stepper):
+    Ad, Bd, dd, q, r_ab, groups, u_lb, u_ub, r_soft = _linearise(
+        model, track, params, mpc, x_lin, u_lin, stepper)
+    return build_stage_qp(x0, x_ref, q, r_ab, r_soft, groups, mpc,
+                          Ad, Bd, dd, u_lb, u_ub)
+
+
+def _build_condensed(model, x0, x_ref, track, params, mpc, x_lin, u_lin,
+                     stepper, condense):
+    name = condense or DEFAULT_CONDENSE
+    if name == "dnc":
+        raise ValueError("condense='dnc' is not ported; use 'pallas' or "
+                         "'scan'")
+    N = mpc.n_steps
+    Ad, Bd, dd, q, r_ab, groups, u_lb, u_ub, r_soft = _linearise(
+        model, track, params, mpc, x_lin, u_lin, stepper)
+    A_bar, B_bar, d_bar = CONDENSERS[name](
+        Ad.contiguous(), Bd.contiguous(), dd.contiguous())
+    q_diag = torch.cat([q.repeat(N - 1), q * mpc.q_terminal_scale])
+    r_diag = r_ab.repeat(N)
+    qp = assemble_condensed_qp(A_bar, B_bar, d_bar, x0, x_ref, q_diag,
+                               r_diag, r_soft, groups, u_lb, u_ub)
+    return qp, (Ad, Bd, dd)
+
+
+def _ltv_tick(model, x0, x_ref, track, params, mpc, x_lin, u_lin, opts,
+              stepper, warm, condense, backend) -> LtvResult:
+    """One batch of LTV ticks of ``model`` on ``backend``."""
+    if backend == "riccati":
+        qp, const = _build_stage(model, x0, x_ref, track, params, mpc,
+                                 x_lin, u_lin, stepper)
+        res = riccati.solve_stage_qp(qp, opts, warm=warm)
+        return LtvResult(u_opt=res.u, x_opt=res.x, slack=res.s,
+                         fval=res.objective + const, qp=res)
+    if backend != "dense":
+        raise ValueError(f"unknown backend={backend!r}")
+    N, nu = mpc.n_steps, 2
+    (H, g, A, lb, ub, lbA, ubA, const), (Ad, Bd, dd) = _build_condensed(
+        model, x0, x_ref, track, params, mpc, x_lin, u_lin, stepper,
+        condense)
+    res = ipm.solve_qp(H, g, A, lb, ub, lbA, ubA, opts, warm=warm)
+    u_opt = res.x[:, :N * nu].reshape(-1, N, nu)
+    x_opt = _rollout(Ad, Bd, dd, x0, u_opt)
+    return LtvResult(u_opt=u_opt, x_opt=x_opt, slack=res.x[:, N * nu:],
+                     fval=res.objective + const, qp=res)
 
 
 def build_stage_qp_dynamic(x0, x_ref, track, params: VehicleParams,
@@ -315,10 +386,8 @@ def build_stage_qp_dynamic(x0, x_ref, track, params: VehicleParams,
     """Assemble a batch of dynamic-model LTV ticks as uncondensed
     :class:`ops.riccati.StageQP`s.  ``x0`` (B, 7), ``x_ref``/``x_lin``
     (B, N, 7), ``u_lin`` (B, N, 2).  Returns (qp, const)."""
-    Ad, Bd, dd, q, r_ab, groups, u_lb, u_ub = _linearise_dynamic(
-        track, params, mpc, x_lin, u_lin, stepper)
-    return build_stage_qp(x0, x_ref, q, r_ab, _r_soft(mpc), groups, mpc,
-                          Ad, Bd, dd, u_lb, u_ub)
+    return _build_stage("dynamic", x0, x_ref, track, params, mpc, x_lin,
+                        u_lin, stepper)
 
 
 def ltv_mpc_dynamic_riccati(x0, x_ref, track, params: VehicleParams,
@@ -330,11 +399,8 @@ def ltv_mpc_dynamic_riccati(x0, x_ref, track, params: VehicleParams,
     """A batch of dynamic-model LTV-MPC ticks on the stage-wise Riccati
     solver.  ``warm`` is the :class:`ops.riccati.StageIpmResult` of the
     previous tick (``LtvResult.qp``)."""
-    qp, const = build_stage_qp_dynamic(x0, x_ref, track, params, mpc,
-                                       x_lin, u_lin, stepper)
-    res = riccati.solve_stage_qp(qp, opts, warm=warm)
-    return LtvResult(u_opt=res.u, x_opt=res.x, slack=res.s,
-                     fval=res.objective + const, qp=res)
+    return _ltv_tick("dynamic", x0, x_ref, track, params, mpc, x_lin, u_lin,
+                     opts, stepper, warm, None, "riccati")
 
 
 def build_qp_dynamic(x0, x_ref, track, params: VehicleParams,
@@ -348,23 +414,15 @@ def build_qp_dynamic(x0, x_ref, track, params: VehicleParams,
     generator-factored rows (``structured="gen"``) are not ported; any
     ``structured`` raises ``ValueError``.
     """
+    _check_structured(structured)
+    return _build_condensed("dynamic", x0, x_ref, track, params, mpc, x_lin,
+                            u_lin, stepper, condense)
+
+
+def _check_structured(structured):
     if structured:
         raise ValueError("structured constraint rows are not ported; use "
                          "the dense default")
-    name = condense or DEFAULT_CONDENSE
-    if name == "dnc":
-        raise ValueError("condense='dnc' is not ported; use 'pallas' or "
-                         "'scan'")
-    N = mpc.n_steps
-    Ad, Bd, dd, q, r_ab, groups, u_lb, u_ub = _linearise_dynamic(
-        track, params, mpc, x_lin, u_lin, stepper)
-    A_bar, B_bar, d_bar = CONDENSERS[name](
-        Ad.contiguous(), Bd.contiguous(), dd.contiguous())
-    q_diag = torch.cat([q.repeat(N - 1), q * mpc.q_terminal_scale])
-    r_diag = r_ab.repeat(N)
-    qp = assemble_condensed_qp(A_bar, B_bar, d_bar, x0, x_ref, q_diag,
-                               r_diag, _r_soft(mpc), groups, u_lb, u_ub)
-    return qp, (Ad, Bd, dd)
 
 
 def ltv_mpc_dynamic(x0, x_ref, track, params: VehicleParams,
@@ -381,17 +439,23 @@ def ltv_mpc_dynamic(x0, x_ref, track, params: VehicleParams,
     ``backend="riccati"``: :func:`ltv_mpc_dynamic_riccati` (``warm`` a
     :class:`ops.riccati.StageIpmResult`).  Both solve the same QP.
     """
-    if backend == "riccati":
-        return ltv_mpc_dynamic_riccati(x0, x_ref, track, params, mpc,
-                                       x_lin, u_lin, opts, stepper, warm)
-    if backend != "dense":
-        raise ValueError(f"unknown backend={backend!r}")
-    N, nu = mpc.n_steps, 2
-    (H, g, A, lb, ub, lbA, ubA, const), (Ad, Bd, dd) = build_qp_dynamic(
-        x0, x_ref, track, params, mpc, x_lin, u_lin, stepper,
-        structured=structured, condense=condense)
-    res = ipm.solve_qp(H, g, A, lb, ub, lbA, ubA, opts, warm=warm)
-    u_opt = res.x[:, :N * nu].reshape(-1, N, nu)
-    x_opt = _rollout(Ad, Bd, dd, x0, u_opt)
-    return LtvResult(u_opt=u_opt, x_opt=x_opt, slack=res.x[:, N * nu:],
-                     fval=res.objective + const, qp=res)
+    if backend == "dense":
+        _check_structured(structured)
+    return _ltv_tick("dynamic", x0, x_ref, track, params, mpc, x_lin, u_lin,
+                     opts, stepper, warm, condense, backend)
+
+
+def ltv_mpc_kinematic(x0, x_ref, track, params: VehicleParams,
+                      mpc: MPCParams, x_lin, u_lin,
+                      opts: ipm.IpmOptions = ipm.IpmOptions(),
+                      stepper: str = "rk2", warm=None,
+                      condense: str | None = None,
+                      backend: str = "dense") -> LtvResult:
+    """A batch of kinematic-model LTV-MPC ticks: weights
+    Q = [q_s, q_n, q_mu, 0, 0], one track slack, the lateral-acceleration
+    proxy rows.  ``x0`` (B, 5), ``x_ref``/``x_lin`` (B, N, 5), ``u_lin``
+    (B, N, 2).  ``backend`` and ``warm`` as in :func:`ltv_mpc_dynamic`;
+    the rows are stage-aligned, so both backends solve the same QP (dense:
+    n = 2N+1 variables)."""
+    return _ltv_tick("kinematic", x0, x_ref, track, params, mpc, x_lin,
+                     u_lin, opts, stepper, warm, condense, backend)

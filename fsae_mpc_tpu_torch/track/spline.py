@@ -191,6 +191,11 @@ def interpolate_dd(t, P, dl):
     return dd / dl ** 2
 
 
+def angle(s, x_P, y_P, dl):
+    """Tangent angle theta(s)."""
+    return torch.arctan2(interpolate_d(s, y_P, dl), interpolate_d(s, x_P, dl))
+
+
 def curvature(s, x_P, y_P, dl):
     """Signed curvature kappa(s)."""
     x_d = interpolate_d(s, x_P, dl)
@@ -198,3 +203,33 @@ def curvature(s, x_P, y_P, dl):
     x_dd = interpolate_dd(s, x_P, dl)
     y_dd = interpolate_dd(s, y_P, dl)
     return (x_d * y_dd - x_dd * y_d) / (x_d ** 2 + y_d ** 2) ** 1.5
+
+
+def curvature_d(s, x_P, y_P, dl):
+    """d kappa/ds by central difference with step ``dl``."""
+    k_l = curvature(s - dl, x_P, y_P, dl)
+    k_u = curvature(s + dl, x_P, y_P, dl)
+    return (k_u - k_l) / (2.0 * dl)
+
+
+def closest_point(x0, y0, x_P, y_P, dl, s_init, num_iters: int = 12):
+    """Project points onto the spline: a fixed number of Newton steps on
+    the squared distance, warm-started at ``s_init`` (elementwise over
+    ``x0``/``y0``/``s_init``).  A fixed count keeps the projection free of
+    host synchronisation."""
+    s = s_init * torch.ones_like(x0)
+    for _ in range(num_iters):
+        X = interpolate(s, x_P, dl)
+        Y = interpolate(s, y_P, dl)
+        X_d = interpolate_d(s, x_P, dl)
+        Y_d = interpolate_d(s, y_P, dl)
+        X_dd = interpolate_dd(s, x_P, dl)
+        Y_dd = interpolate_dd(s, y_P, dl)
+        dist_d = 2.0 * (X - x0) * X_d + 2.0 * (Y - y0) * Y_d
+        dist_dd = (2.0 * (X - x0) * X_dd + 2.0 * X_d ** 2
+                   + 2.0 * (Y - y0) * Y_dd + 2.0 * Y_d ** 2)
+        guard = torch.where(dist_dd < 0, torch.full_like(dist_dd, -1e-9),
+                            1e-9)
+        denom = torch.where(torch.abs(dist_dd) < 1e-9, guard, dist_dd)
+        s = s - dist_d / denom
+    return s

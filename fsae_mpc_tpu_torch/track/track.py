@@ -1,8 +1,8 @@
 """The ``Track``: arclength-parametrised closed-track geometry on tensors.
 
 Port of ``fsae_mpc_tpu.track.track``: the spline coefficients of the host
-f64 fit as tensors on one device in one dtype, with the curvature lookup
-the dynamics need.  ``track_from_points`` and ``load_track`` put them on
+f64 fit as tensors on one device in one dtype, with the geometry queries
+the dynamics and the frame transforms need.  ``track_from_points`` and ``load_track`` put them on
 the CUDA device unless the caller asks for another (``device="cpu"``).
 """
 
@@ -27,8 +27,26 @@ class Track:
     dl: torch.Tensor
     L: torch.Tensor
 
+    def position(self, s):
+        return (sp.interpolate(s, self.px, self.dl),
+                sp.interpolate(s, self.py, self.dl))
+
+    def tangent(self, s):
+        return (sp.interpolate_d(s, self.px, self.dl),
+                sp.interpolate_d(s, self.py, self.dl))
+
+    def angle(self, s):
+        return sp.angle(s, self.px, self.py, self.dl)
+
     def curvature(self, s):
         return sp.curvature(s, self.px, self.py, self.dl)
+
+    def curvature_d(self, s):
+        return sp.curvature_d(s, self.px, self.py, self.dl)
+
+    def closest_point(self, x, y, s_init, num_iters: int = 12):
+        return sp.closest_point(x, y, self.px, self.py, self.dl, s_init,
+                                num_iters=num_iters)
 
     def to(self, device=None, dtype=None) -> "Track":
         return Track(**{f.name: getattr(self, f.name).to(device=device,

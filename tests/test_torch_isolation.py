@@ -210,7 +210,10 @@ def test_port_never_imports_jax():
     """The slice's modules import neither ``jax`` nor the JAX package (the
     GPU machine has no JAX)."""
     code = ("import sys, fsae_mpc_tpu_torch.mpc.ltv, "
-            "fsae_mpc_tpu_torch.interop, fsae_mpc_tpu_torch.track; "
+            "fsae_mpc_tpu_torch.interop, fsae_mpc_tpu_torch.track, "
+            "fsae_mpc_tpu_torch.sim, fsae_mpc_tpu_torch.models.cartesian, "
+            "fsae_mpc_tpu_torch.models.transforms, "
+            "fsae_mpc_tpu_torch.models.pid; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'fsae_mpc_tpu.'))]; "
             "assert not bad, bad")
