@@ -16,11 +16,16 @@ Phases (any failure exits non-zero before the result lines):
   2. kernels  -- each of the seven kernels against its plain PyTorch
                  version on the same CUDA tensors, in f32:
                  the four Riccati kernels at the Riccati path's shapes
-                 (B=1024, N=40, nx=7, r=20, ns=4, K=5 and K=1) and at an
-                 odd batch (B=37, also for the other template instances
-                 nx 5/9, ns 1); condense at (B=1024, N=40, nx=7, nu=2) and
+                 (B=1024, N=40, nx=7, r=20, ns=4, K=5 and K=1), at the
+                 kinematic QP's (nx=5, ns=1, r=6) and at the NMPC paths'
+                 (``SHAPE_KEYS``: MS dynamic nx=7, ns=2, r=5, N=40;
+                 trapezoidal on the augmented state, nz=9, ns=2, r=5 and
+                 nz=7, ns=1, r=6, N=41), each also at an odd batch (B=37),
+                 and at B=37 for every template instance (nx 5/7/9 by ns
+                 1/2/4); condense at (B=1024, N=40, nx=7, nu=2) and
                  at B=37 with nx 7 and 5; the dense Cholesky factor and
-                 solve at n=84 and n=81, B=1024 and B=37, on SPD matrices
+                 solve at n=84, 81, 82 and 83 (the LTV and NMPC QPs),
+                 B=1024 and B=37, on SPD matrices
                  whose diagonal spans the IPM's range (up to its f32
                  complementarity cap, 1e7), normwise and entry by entry
                  (componentwise backward error, also of the solve on the
@@ -33,7 +38,8 @@ Phases (any failure exits non-zero before the result lines):
                  (a row dropped, a chunk staged one stage late, the P, p
                  or dx carry not advanced, two rhs swapped) must fail
                  those checks.  One indefinite instance among 37 must come
-                 out NaN with its neighbours finite (Riccati 2x2 pivot);
+                 out NaN with its neighbours finite (Riccati 2x2 pivot,
+                 at the main shapes and at nz=9, ns=2, N=41);
                  two indefinite dense KKT matrices must come out NaN from
                  their first failing pivot on and finite before it, which
                  the factor's planted pivot clamp must fail; one instance
@@ -88,6 +94,17 @@ Phases (any failure exits non-zero before the result lines):
                  equal to the schedule, and the tick times against the
                  50 ms budget.  Phase 2 also times K1-K3 and K5-K7 at the
                  kinematic QP's shapes (nx=5, ns=1, r=6; n=81).
+  6. NMPC loop -- ``sim.simulate`` at B=1024 laps of 10 ticks with the
+                 NMPC modes (``NMPC_CONFIGS``): MS dynamic/Riccati/
+                 ``F32_PRODUCTION`` (K1 at ns=2, K4 once a tick), MS
+                 kinematic/dense/``F32_ACCURATE`` (K5-K7, the pre-step
+                 ellipse rows), trapezoidal dynamic/dense/``F32_ACCURATE``
+                 (the non-aligned condensed QP, n=84) and trapezoidal
+                 kinematic/Riccati/``F32_PRODUCTION`` (nz=7, N=41): as
+                 phase 4, with launches equal to the schedule (three SQP
+                 subproblems a tick, the first cold) and the tolerance
+                 from the measured f32-to-f64 divergence of these laps
+                 (``NMPC_STATE_TOL``).
 
 The last three lines of standard output are the card's name and power
 limit, one JSON object with the kernels, and
@@ -97,6 +114,7 @@ limit, one JSON object with the kernels, and
 from __future__ import annotations
 
 import json
+import multiprocessing
 import os
 import subprocess
 import sys
@@ -107,6 +125,18 @@ B_MAIN, N_MAIN, NX, NU, R, NS = 1024, 40, 7, 2, 20, 4
 # rows a stage of the kinematic LTV QP (box [v, delta], track, lateral
 # acceleration; the two soft groups emit a lower and an upper row each)
 R_KIN = 6
+# the Riccati kernels' shapes on the NMPC paths (nx, ns, rows a stage, N):
+# multiple shooting, dynamic (box [x_d, delta], track, the friction
+# ellipse's upper side: r = 5, slacks [track, tyre]); trapezoidal
+# collocation on the augmented state z = [x; u] over N+1 stages, dynamic
+# (nz = 9, the same rows) and kinematic (nz = 7, the kinematic rows); the
+# kinematic MS QP has the kinematic LTV QP's shapes.  SHAPE_KEYS names
+# each shape's times in the results ("" the main path's).
+R_NMPC_DYN = 5
+SHAPE_KEYS = {(NX, NS, R, N_MAIN): "", (5, 1, R_KIN, N_MAIN): "_kin",
+              (7, 2, R_NMPC_DYN, N_MAIN): "_msdyn",
+              (9, 2, R_NMPC_DYN, N_MAIN + 1): "_trdyn",
+              (7, 1, R_KIN, N_MAIN + 1): "_trkin"}
 WARM_TICKS = 10
 ACC_SUBSET = 64
 SEED = 0
@@ -117,8 +147,11 @@ SEED = 0
 # the matrix's conditioning on this data.
 KERNEL_RTOL = 1e-4
 # dense kernels: widths of the dynamic (nx=7, n=84) and kinematic (nx=5,
-# n=81) LTV QPs
-N_DENSE = (84, 81)
+# n=81) LTV QPs, which the kinematic MS-NMPC and the dynamic trapezoidal
+# QP share, and of the dynamic MS-NMPC (n=82) and kinematic trapezoidal
+# (n=83) QPs; DENSE_KEYS names each width's times in the results
+N_DENSE = (84, 81, 82, 83)
+DENSE_KEYS = {84: "", 81: "_kin", 82: "_n82", 83: "_n83"}
 # published peaks of one H100 SXM (NVIDIA data sheet, 700 W): HBM bytes/s
 # and float32 operations/s outside the tensor cores
 PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
@@ -158,6 +191,40 @@ SIM_F32_DIVERGENCE = {
                 8.03e-03)}
 SIM_STATE_TOL = {k: tuple(5.0 * v for v in d)
                  for k, d in SIM_F32_DIVERGENCE.items()}
+# phase 6, the NMPC closed loop: B_SIM laps of NMPC_TICKS ticks in each
+# (mode, model, backend, preset) of NMPC_CONFIGS on fsg2019 with MPC_F32,
+# from phase 4's starts, three SQP iterations a tick.  Together they run
+# every kernel and both new assembly paths: K1 at ns=2 and K4 once a tick
+# (the cold first subproblem; no warm start crosses ticks), the dense
+# pre-step ellipse rows (non-aligned, n = 81), the trapezoidal condensed QP
+# (non-aligned, NC = N+1, n = 84) and the augmented-state stage QP
+# (nz = 7, N+1 = 41 stages).  F32_ACCURATE is refused by the Riccati
+# solver (scale_kkt, comp_resid), hence F32_PRODUCTION there.
+NMPC_TICKS = 10
+# instances 0..SIM_CHECK-1 against the same laps run by the port on the
+# CPU in f32, as phase 4: NMPC_F32_DIVERGENCE is the f32-against-f64
+# divergence of these laps and ticks on a CPU (``tools/sim_reference.py
+# divergence --nmpc --ticks 10``, x86-64), the tolerance 5x that.  The
+# plant's position error is a vector in the plane whose split between x
+# and y follows the heading, so both coordinates take the larger of their
+# two divergences (the kinematic MS laps' x alone diverges by 2.55e-7 m,
+# two f32 units in the last place at the laps' ~1.3 m, where y diverges by
+# 4.41e-6).
+NMPC_F32_DIVERGENCE = {
+    "ms-nmpc/dynamic": (1.24e-03, 3.57e-04, 3.18e-04, 3.45e-03, 1.34e-03,
+                        2.20e-03, 1.67e-03),
+    "ms-nmpc/kinematic": (2.55e-07, 4.41e-06, 4.66e-06, 5.97e-06, 6.82e-05,
+                          1.07e-04, 6.63e-05),
+    "c-nmpc/dynamic": (1.98e-06, 1.66e-05, 1.81e-05, 3.08e-05, 8.75e-05,
+                       1.40e-04, 7.16e-05),
+    "c-nmpc/kinematic": (4.45e-07, 1.45e-06, 1.77e-06, 3.33e-06, 1.24e-05,
+                         2.14e-05, 8.46e-06)}
+NMPC_STATE_TOL = {k: tuple(5.0 * v for v in (max(d[:2]),) * 2 + d[2:])
+                  for k, d in NMPC_F32_DIVERGENCE.items()}
+NMPC_CONFIGS = (("ms-nmpc", "dynamic", "riccati", "F32_PRODUCTION"),
+                ("ms-nmpc", "kinematic", "dense", "F32_ACCURATE"),
+                ("c-nmpc", "dynamic", "dense", "F32_ACCURATE"),
+                ("c-nmpc", "kinematic", "riccati", "F32_PRODUCTION"))
 # phase 5, one timed lap: B=1, dynamic / dense / MPC_F32 / F32_ACCURATE on
 # fsg2019 from the origin at rest, at most LAP_TICKS ticks, stopping when
 # the lap is done (the configuration of the JAX package's
@@ -419,26 +486,26 @@ def riccati_ops(name, B, N, nx, nu, r, ns, K):
 def kernel_phase(kr, device, card, plants):
     import torch
     results = {}
-    # the main path's shapes, the kinematic closed loop's (nx=5, ns=1,
-    # r=6 rows a stage), then (B=37) the other template instances: nx 5/9
-    # and ns 1 serve the kinematic and collocation controllers.  Six rows
-    # on nx + nu + ns = 8 unknowns leave each stage's Gram block
-    # rank-deficient: with Dr over six decades the plain version in f32
-    # is itself 2.0e-4 normwise (8.8e-4 per instance) from f64 on this
-    # data, where no 1e-4 check of two f32 summation orders can hold; over
-    # three decades it is 1.4e-6 (5.2e-6), the main case's conditioning
-    # (2.4e-6, 9.5e-6)
-    cases = [(B_MAIN, NS + 1, NX, NS, R), (B_MAIN, 1, NX, NS, R),
-             (B_MAIN, 2, 5, 1, R_KIN), (B_MAIN, 1, 5, 1, R_KIN),
-             (37, NS + 1, NX, NS, R)] + [
-        (37, ns + 1, nx, ns, R) for nx in (5, 7, 9) for ns in (1, 4)
-        if (nx, ns) != (NX, NS)]
-    for Bsz, K, nx, ns, r in cases:
+    # (B, K, nx, ns, r, N): each shape of SHAPE_KEYS (the main path's,
+    # the kinematic QP's, the NMPC paths') at B=1024 with K = ns+1 and
+    # K = 1, and at B=37; then (B=37) every template instance at the main
+    # rows (nx 5/7/9 by ns 1/2/4).  Five or six rows on nx + nu + ns >= 8
+    # unknowns leave each stage's Gram block rank-deficient: with Dr over
+    # six decades the plain version in f32 is itself 2.0e-4 normwise
+    # (8.8e-4 per instance) from f64 on the r=6 data, where no 1e-4 check
+    # of two f32 summation orders can hold; over three decades it is
+    # 1.4e-6 (5.2e-6), the main case's conditioning (2.4e-6, 9.5e-6)
+    cases = [(B_MAIN, k, nx, ns, r, n) for (nx, ns, r, n) in SHAPE_KEYS
+             for k in (ns + 1, 1)] + [
+        (37, ns + 1, nx, ns, r, n) for (nx, ns, r, n) in SHAPE_KEYS] + [
+        (37, ns + 1, nx, ns, R, N_MAIN) for nx in kr.SUPPORTED_NX
+        for ns in kr.SUPPORTED_NS if (nx, ns) != (NX, NS)]
+    for Bsz, K, nx, ns, r, N in cases:
         tag = f"B={Bsz} K={K}" + ("" if (nx, ns) == (NX, NS)
                                   else f" nx={nx} ns={ns}") + (
-            "" if r == R else f" r={r}")
-        x = kernel_inputs(Bsz, N_MAIN, K, SEED + Bsz + K + nx, device, nx,
-                          ns, r, 6.0 if r == R else 3.0)
+            "" if r == R else f" r={r}") + ("" if N == N_MAIN else f" N={N}")
+        x = kernel_inputs(Bsz, N, K, SEED + Bsz + K + nx, device, nx, ns,
+                          r, 6.0 if r == R else 3.0)
         fac_args = (x["Ad"], x["Bd"], x["Qb"], x["Rb"], x["M"])
         asm_args = (x["C"], x["D"], x["Ws"], x["Dr"], x["qbd"], x["rbd"],
                     x["Ad"], x["Bd"])
@@ -466,7 +533,7 @@ def kernel_phase(kr, device, card, plants):
             "assemble_factor": (asm_args, asm_p),
             "apply_bwd": (app_args + rhs, hw_p),
             "apply_fwd": (app_args + (x["re"],) + tuple(hw_p), fwd_p)},
-            (Bsz, N_MAIN, r, nx, ns, K), tag)
+            (Bsz, N, r, nx, ns, K), tag)
         if Bsz == B_MAIN:
             times = {
                 "factor": (lambda: kr.factor_cuda(*fac_args),
@@ -491,12 +558,12 @@ def kernel_phase(kr, device, card, plants):
                 pms = cuda_ms(fp, 3, warmup=1)
                 ins, outs = io[name]
                 bms, by = bound(nbytes(*ins, *outs), riccati_ops(
-                    name, Bsz, N_MAIN, nx, NU, r, ns, K))
+                    name, Bsz, N, nx, NU, r, ns, K))
                 log(f"time {name:16s} [{tag}] kernel {ms:.4f} ms (eager "
                     f"loop {eager:.4f} ms), plain {pms:.4f} ms, bound "
                     f"{bms:.4f} ms ({by}); no single PyTorch call computes "
                     f"it  ({card})")
-                key = (("" if nx == NX else "_kin")
+                key = (SHAPE_KEYS[nx, ns, r, N]
                        + ("" if K == ns + 1 else "_k1"))
                 results[name].update({"ms" + key: ms, "plain_ms" + key: pms,
                                       "bound_ms" + key: bms,
@@ -504,24 +571,28 @@ def kernel_phase(kr, device, card, plants):
                 results[name]["library_ms"] = None
 
     # NaN poison: instance 5 of 37 gets an indefinite pivot at stage 17
-    x = kernel_inputs(37, N_MAIN, 1, SEED + 99, device)
-    Rb = x["Rb"].clone()
-    Rb[5, 17] = torch.tensor([[-5.0, 0.0], [0.0, 1.0]], device=device)
-    for name, out in (
-            ("factor", kr.factor_cuda(x["Ad"], x["Bd"], x["Qb"], Rb,
-                                      x["M"])),
-            ("assemble_factor", kr.assemble_factor_cuda(
-                x["C"], x["D"], x["Ws"], x["Dr"], x["qbd"],
-                torch.where(torch.arange(37, device=device)[:, None, None]
-                            == 5, -1e9, x["rbd"]), x["Ad"], x["Bd"]))):
-        huinv = out[0]
-        others = torch.ones(37, dtype=torch.bool, device=device)
-        others[5] = False
-        poisoned = bool(torch.isnan(huinv[5]).any())
-        clean = all(bool(torch.isfinite(o[others]).all()) for o in out)
-        log(f"kernel {name:16s} [NaN poison] instance 5 NaN: {poisoned}, "
-            f"other 36 finite: {clean}")
-        check(poisoned and clean, f"{name}: NaN poison not isolated")
+    # (the main shapes, and the trapezoidal dynamic QP's: nz=9, ns=2, N=41)
+    for nx, ns, r, N in ((NX, NS, R, N_MAIN),
+                         (9, 2, R_NMPC_DYN, N_MAIN + 1)):
+        x = kernel_inputs(37, N, 1, SEED + 99, device, nx, ns, r)
+        Rb = x["Rb"].clone()
+        Rb[5, 17] = torch.tensor([[-5.0, 0.0], [0.0, 1.0]], device=device)
+        for name, out in (
+                ("factor", kr.factor_cuda(x["Ad"], x["Bd"], x["Qb"], Rb,
+                                          x["M"])),
+                ("assemble_factor", kr.assemble_factor_cuda(
+                    x["C"], x["D"], x["Ws"], x["Dr"], x["qbd"],
+                    torch.where(torch.arange(37, device=device)[:, None,
+                                                                None]
+                                == 5, -1e9, x["rbd"]), x["Ad"], x["Bd"]))):
+            huinv = out[0]
+            others = torch.ones(37, dtype=torch.bool, device=device)
+            others[5] = False
+            poisoned = bool(torch.isnan(huinv[5]).any())
+            clean = all(bool(torch.isfinite(o[others]).all()) for o in out)
+            log(f"kernel {name:16s} [NaN poison, nx={nx} ns={ns} N={N}] "
+                f"instance 5 NaN: {poisoned}, other 36 finite: {clean}")
+            check(poisoned and clean, f"{name}: NaN poison not isolated")
 
     # apply_bwd and apply_fwd: instance 5 of 37 carries a NaN Huinv at
     # stage 17
@@ -772,7 +843,7 @@ def dense_kernel_phase(device, card, chol_plants):
                 log(f"time {name:16s} [{tag}] kernel {ms:.4f} ms, plain "
                     f"{pms:.4f} ms, {lib} {lms:.4f} ms, bound {bms:.4f} ms "
                     f"({by})  ({card})")
-                key = "" if n == N_DENSE[0] else "_kin"
+                key = DENSE_KEYS[n]
                 results[name].update({
                     "ms" + key: ms, "plain_ms" + key: pms,
                     "library_ms" + key: lms, "bound_ms" + key: bms,
@@ -1250,12 +1321,93 @@ def accuracy_same_qp(out, dense_refs, model):
 # ---------------------------------------------------------------------------
 
 
-def sim_phase(model, device, card, kres):
-    """``sim.simulate`` at B_SIM laps for SIM_TICKS ticks in each of
-    SIM_CONFIGS: launch counts equal to the schedule (no cold term; K4
-    never), no host synchronisation, every trace finite, instances
-    0..SIM_CHECK-1 against the port's own f32 run of the same laps on the
-    CPU.  Returns the launch counts of each run."""
+def loop_schedule(mode, backend, opts, ticks, sqp_iters):
+    """Kernel launches of ``ticks`` closed-loop ticks.  LTV: one warm
+    solve a tick (the first tick's warm start is a zero carry, so K4
+    never runs).  NMPC: ``sqp_iters`` solves a tick, the first of them
+    cold (no warm start crosses ticks: one K4 sweep, or one Cholesky
+    factor and solve, a tick) and the others warm-started from their
+    predecessor; the trapezoidal transcription condenses with the plain
+    ``condense_general``, never K5."""
+    if mode == "ltv":
+        return schedule_of(backend, opts, ticks, cold=0)
+    exp, iters = schedule_of(backend, opts, ticks * sqp_iters, cold=ticks)
+    if mode == "c-nmpc":
+        exp["condense"] = 0
+    return exp, iters
+
+
+# per NMPC (mode, model): the phase 2 keys of its Riccati shapes and its
+# dense QP's width
+NMPC_SHAPES = {("ms-nmpc", "dynamic"): ("_msdyn", 82),
+               ("ms-nmpc", "kinematic"): ("_kin", 81),
+               ("c-nmpc", "dynamic"): ("_trdyn", 84),
+               ("c-nmpc", "kinematic"): ("_trkin", 83)}
+
+
+def loop_kernel_ms(mode, name, backend, kres, opts, iters, sqp_iters):
+    """The hand kernels' share of a closed-loop tick: per-launch times
+    (phase 2, at the tick's shapes) times launches a tick."""
+    per_solve = 2 if opts.scale_kkt else 1
+    if mode == "ltv":
+        return kernel_ms_per_tick(backend, kres, iters,
+                                  "_kin" if name == "kinematic" else "",
+                                  per_solve)
+    rkey, n = NMPC_SHAPES[mode, name]
+    if backend == "riccati":
+        return (sqp_iters * kernel_ms_per_tick(backend, kres, iters, rkey)
+                + kres["factor"]["ms" + rkey])
+    dkey = DENSE_KEYS[n]
+    chol = (kres["chol_factor"]["ms" + dkey]
+            + per_solve * kres["chol_solve"]["ms" + dkey])
+    cond = (kres["condense"]["ms" + ("_kin" if name == "kinematic" else "")]
+            if mode == "ms-nmpc" else 0.0)
+    return sqp_iters * (cond + iters * (
+        chol + per_solve * kres["chol_solve"]["ms" + dkey])) + chol
+
+
+def cpu_reference_laps(mode, name, backend, preset, ticks):
+    """The laps of instances 0..SIM_CHECK-1 of ``sim_scenarios`` by the
+    port on the CPU in f32 (the plain versions), one thread: the plant
+    states (SIM_CHECK, ticks, 7) as numpy.  Run in a worker process (see
+    :func:`closed_loop_phase`)."""
+    import torch
+    sys.path.insert(0, ROOT)
+    from fsae_mpc_tpu_torch.config import MPC_F32, VehicleParams
+    from fsae_mpc_tpu_torch.ops import ipm
+    from fsae_mpc_tpu_torch.sim import SimConfig, simulate
+    from fsae_mpc_tpu_torch.track import load_track
+
+    torch.set_num_threads(1)
+    track, _ = load_track(os.path.join(ROOT, "data", "fsg2019.csv"),
+                          dtype=torch.float32, device="cpu")
+    cfg = SimConfig(model=name, mode=mode, qp_backend=backend,
+                    n_ticks=ticks, mpc=MPC_F32, ipm=getattr(ipm, preset))
+    t0 = time.perf_counter()
+    out = simulate(track, VehicleParams(), cfg, torch.tensor(
+        sim_scenarios(B_SIM)[:SIM_CHECK], dtype=torch.float32))
+    return out.x_history.numpy(), time.perf_counter() - t0
+
+
+def start_cpu_references(pool, configs, ticks):
+    """Start :func:`cpu_reference_laps` of each config on ``pool`` (a
+    ``multiprocessing`` pool): the CPU's f32 laps run beside the card's
+    phases."""
+    return {c: pool.apply_async(cpu_reference_laps, (*c, ticks))
+            for c in configs}
+
+
+def closed_loop_phase(label, configs, ticks, tols, model, device, card,
+                      kres, cpu_refs=None):
+    """``sim.simulate`` at B_SIM laps for ``ticks`` ticks in each (mode,
+    model, backend, preset) of ``configs``: launch counts equal to the
+    schedule (:func:`loop_schedule`), no host synchronisation, every trace
+    finite, instances 0..SIM_CHECK-1 against the port's own f32 run of the
+    same laps on the CPU within ``tols`` (keyed by model for LTV, by
+    "mode/model" for NMPC): ``cpu_refs`` maps a config to the pending
+    result of those laps from :func:`start_cpu_references`, else they run
+    here.
+    Returns the launch counts of each run."""
     import torch
     from fsae_mpc_tpu_torch.ops import ipm
     from fsae_mpc_tpu_torch.sim import SimConfig, simulate
@@ -1266,12 +1418,14 @@ def sim_phase(model, device, card, kres):
     x_t = torch.tensor(x_init, dtype=torch.float32, device=device)
     track_cpu = track.to("cpu")
     counts = []
-    for name, backend, preset in SIM_CONFIGS:
+    for mode, name, backend, preset in configs:
         opts = getattr(ipm, preset)
-        tag = f"{name}/{backend}/{preset}"
-        cfg = SimConfig(model=name, qp_backend=backend, n_ticks=SIM_TICKS,
-                        mpc=mpc, ipm=opts)
-        exp, iters = schedule_of(backend, opts, SIM_TICKS, cold=0)
+        tag = (f"{name}/{backend}/{preset}" if mode == "ltv"
+               else f"{mode} {name}/{backend}/{preset}")
+        cfg = SimConfig(model=name, mode=mode, qp_backend=backend,
+                        n_ticks=ticks, mpc=mpc, ipm=opts)
+        exp, iters = loop_schedule(mode, backend, opts, ticks,
+                                   cfg.sqp_iters)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         torch.cuda.synchronize()
@@ -1289,53 +1443,63 @@ def sim_phase(model, device, card, kres):
         torch.cuda.synchronize()
         host_s = time.perf_counter() - t0
         got = launches()
-        tick_ms = start.elapsed_time(end) / SIM_TICKS
+        tick_ms = start.elapsed_time(end) / ticks
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
-        log(f"sim {tag}: {tick_ms:.2f} ms a sim tick at B={B_SIM} (CUDA "
-            f"events over {SIM_TICKS} ticks, the first included; host "
-            f"{1e3 * host_s / SIM_TICKS:.2f} ms), "
+        log(f"{label} {tag}: {tick_ms:.2f} ms a sim tick at B={B_SIM} (CUDA "
+            f"events over {ticks} ticks, the first included; host "
+            f"{1e3 * host_s / ticks:.2f} ms), "
             f"{B_SIM * 1e3 / tick_ms:.1f} instance-ticks/s, peak device "
             f"memory {peak_gb:.3f} GB  ({card})")
-        log(f"sim {tag}: launches {got}, schedule {exp} (per tick "
-            f"{ {k: v // SIM_TICKS for k, v in exp.items() if v} })")
-        check(got == exp, f"sim {tag}: launches {got} != schedule {exp}")
-        check(got["factor"] == 0, f"sim {tag}: K4 launched")
-        log(f"sim {tag}: host syncs inside simulate {len(syncs)} "
+        log(f"{label} {tag}: launches {got}, schedule {exp} (per tick "
+            f"{ {k: v // ticks for k, v in exp.items() if v} })")
+        check(got == exp, f"{label} {tag}: launches {got} != schedule {exp}")
+        k4 = 0 if mode == "ltv" or backend == "dense" else ticks
+        check(got["factor"] == k4, f"{label} {tag}: K4 launched "
+              f"{got['factor']} times, not {k4}")
+        log(f"{label} {tag}: host syncs inside simulate {len(syncs)} "
             f"{sorted(set(syncs))[:8]}")
-        check(not syncs, f"sim {tag}: simulate synchronises with the host")
-        key = "_kin" if name == "kinematic" else ""
-        k_ms = kernel_ms_per_tick(backend, kres, iters, key,
-                                  2 if opts.scale_kkt else 1)
-        log(f"sim {tag}: hand kernels ~{k_ms:.2f} ms of the {tick_ms:.2f} "
-            f"ms sim tick ({100 * k_ms / tick_ms:.1f}%; per-launch times "
-            "x launches)")
+        check(not syncs, f"{label} {tag}: simulate synchronises with the "
+              "host")
+        k_ms = loop_kernel_ms(mode, name, backend, kres, opts, iters,
+                              cfg.sqp_iters)
+        log(f"{label} {tag}: hand kernels ~{k_ms:.2f} ms of the "
+            f"{tick_ms:.2f} ms sim tick ({100 * k_ms / tick_ms:.1f}%; "
+            "per-launch times x launches)")
         traces = {f: getattr(out, f) for f in (
             "x_history", "u_history", "n_history", "obj_history", "slack_n",
             "slack_tyre", "qp_pres", "qp_mu", "fcr")}
         bad = [f for f, t in traces.items() if not bool(
             torch.isfinite(t).all())]
-        check(not bad, f"sim {tag}: non-finite traces {bad}")
+        check(not bad, f"{label} {tag}: non-finite traces {bad}")
         act = out.active.float()
-        log(f"sim {tag}: lap done {int(out.lap_done.sum())} of {B_SIM}, "
+        log(f"{label} {tag}: lap done {int(out.lap_done.sum())} of {B_SIM}, "
             f"mean |n| {float(out.n_history.abs().mean()):.4f} m, plant "
             f"speed at the end {float(out.x_history[:, -1, 3].mean()):.3f}"
             f" m/s, abnormal exits {float(out.abnormal_exit_frac.mean()):.3f}"
             f" (bar {CONV_THRESHOLDS[backend]}), active share "
             f"{float(act.mean()):.3f}")
-        sim_breakdown(tag, cfg, model, out.x_history[:, -1], tick_ms, card)
+        sim_breakdown(f"{label} {tag}", cfg, model, out.x_history[:, -1],
+                      tick_ms, card)
         # the same laps on the CPU in f32, through the plain versions
-        t0 = time.perf_counter()
-        ref = simulate(track_cpu, params, cfg,
-                       torch.tensor(x_init[:SIM_CHECK], dtype=torch.float32))
-        cpu_s = time.perf_counter() - t0
+        if cpu_refs is not None:
+            t0 = time.perf_counter()
+            ref_x, cpu_s = cpu_refs[mode, name, backend, preset].get()
+            ref_x = torch.from_numpy(ref_x)
+            wait = f"; waited {time.perf_counter() - t0:.1f} s for it"
+        else:
+            t0 = time.perf_counter()
+            ref_x = simulate(track_cpu, params, cfg, torch.tensor(
+                x_init[:SIM_CHECK], dtype=torch.float32)).x_history
+            cpu_s, wait = time.perf_counter() - t0, ""
         d = (out.x_history[:SIM_CHECK].cpu().double()
-             - ref.x_history.double()).abs().amax((0, 1))
-        tol = SIM_STATE_TOL[name]
-        log(f"sim {tag}: instances 0-{SIM_CHECK - 1} card vs CPU f32, max "
-            f"|dx| per state {[f'{v:.2e}' for v in d.tolist()]}, tol "
-            f"{[f'{v:.2e}' for v in tol]} (CPU run {cpu_s:.1f} s)")
+             - ref_x.double()).abs().amax((0, 1))
+        tol = tols[name if mode == "ltv" else f"{mode}/{name}"]
+        log(f"{label} {tag}: instances 0-{SIM_CHECK - 1} card vs CPU f32, "
+            f"max |dx| per state {[f'{v:.2e}' for v in d.tolist()]}, tol "
+            f"{[f'{v:.2e}' for v in tol]} (CPU run {cpu_s:.1f} s{wait})")
         check(all(a <= b for a, b in zip(d.tolist(), tol)),
-              f"sim {tag}: card and CPU laps differ beyond the tolerance")
+              f"{label} {tag}: card and CPU laps differ beyond the "
+              "tolerance")
         counts.append({k: v for k, v in got.items() if v})
     return counts
 
@@ -1343,18 +1507,18 @@ def sim_phase(model, device, card, kres):
 def sim_breakdown(tag, cfg, model, x, tick_ms, card):
     """Where a sim tick's time goes: each of its parts timed alone at the
     batch's last plant states (CUDA events, 3 calls after one more): the
-    projection, the reference, the QP tick (from the first tick's guess
-    and zero warm start) and the 10 PID+RK6 plant substeps; the rest
-    (freezing, tyre force, convergence flags) is the difference."""
+    projection, the reference, the MPC tick (from the first tick's guess;
+    LTV with the zero warm start) and the 10 PID+RK6 plant substeps; the
+    rest (freezing, tyre force, convergence flags) is the difference."""
     import torch
     from fsae_mpc_tpu_torch.models import transforms
-    from fsae_mpc_tpu_torch.mpc import ltv
     from fsae_mpc_tpu_torch.sim import closed_loop as cl
 
     track, params, mpc = model
     Bsz = x.shape[0]
     x_opt, u_opt = cl._initial_guess(cfg, Bsz, x.dtype, x.device)
-    warm = cl._zero_warm(cfg, Bsz, x.dtype, x.device)
+    warm = (cl._zero_warm(cfg, Bsz, x.dtype, x.device) if cfg.mode == "ltv"
+            else None)
     s, n, mu = transforms.cartesian_to_curvilinear(
         x[:, 0], x[:, 1], x[:, 2], track, x_opt[:, 0, 0])
     if cfg.model == "kinematic":
@@ -1363,22 +1527,20 @@ def sim_breakdown(tag, cfg, model, x, tick_ms, card):
     else:
         x0 = torch.stack([s, n, mu, x[:, 3], x[:, 4], x[:, 5], x[:, 6]], -1)
     x_ref = cl._reference(cfg, x0, x[:, 3])
-    base = (ltv.ltv_mpc_kinematic if cfg.model == "kinematic"
-            else ltv.ltv_mpc_dynamic)
+    solver = cl._solver(track, params, cfg)
     pids = (torch.zeros_like(x[:, 0]), torch.zeros_like(x[:, 0]))
     parts = {
         "projection": lambda: transforms.cartesian_to_curvilinear(
             x[:, 0], x[:, 1], x[:, 2], track, x_opt[:, 0, 0]),
         "reference": lambda: cl._reference(cfg, x0, x[:, 3]),
-        "QP tick": lambda: base(x0, x_ref, track, params, mpc, x_opt, u_opt,
-                                cfg.ipm, warm=warm, backend=cfg.qp_backend),
+        "MPC tick": lambda: solver(x0, x_ref, x_opt, u_opt, warm),
         "plant substeps": lambda: cl.plant_substeps(
             x, x[:, 3] + 1.0, x[:, 6], (pids, pids), params, mpc.dt,
             cfg.n_substeps),
     }
     ms = {k: cuda_ms(fn, 3, warmup=1) for k, fn in parts.items()}
     rest = tick_ms - sum(ms.values())
-    log(f"sim {tag}: sim tick {tick_ms:.2f} ms = " + ", ".join(
+    log(f"{tag}: sim tick {tick_ms:.2f} ms = " + ", ".join(
         f"{k} {v:.2f}" for k, v in ms.items()) + f", rest {rest:.2f} ms "
         f"(each part alone, CUDA events)  ({card})")
 
@@ -1473,6 +1635,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
     log(f"card: {card}; torch {torch.__version__} cuda {torch.version.cuda}")
+    cpu_pool = None
     try:
         t0 = time.perf_counter()
         plant_defs = {n: (f"RICCATI_PLANT={n}",) for n in PLANTS}
@@ -1499,6 +1662,11 @@ def main() -> int:
                               dtype=torch.float32, device=device)
         model = (track, VehicleParams(), MPC_F32)
         entry_phase(model, device)
+        # phase 6's CPU laps (minutes on one core each) run in worker
+        # processes beside phases 3-5 on the card
+        cpu_pool = multiprocessing.get_context("spawn").Pool(
+            len(NMPC_CONFIGS))
+        nmpc_refs = start_cpu_references(cpu_pool, NMPC_CONFIGS, NMPC_TICKS)
         paths, outs = [], {}
         for backend in ("riccati", "dense"):
             outs[backend], counts = main_path(backend, model, device, card,
@@ -1509,12 +1677,21 @@ def main() -> int:
         accuracy_warm_chain("riccati", outs["riccati"], model)
         dense_refs = accuracy_warm_chain("dense", outs["dense"], model)
         accuracy_same_qp(outs["dense"], dense_refs, model)
-        paths.extend(sim_phase(model, device, card, kres))
+        paths.extend(closed_loop_phase(
+            "sim", [("ltv",) + c for c in SIM_CONFIGS], SIM_TICKS,
+            SIM_STATE_TOL, model, device, card, kres))
         paths.append(lap_phase(model, card))
+        paths.extend(closed_loop_phase(
+            "nmpc", NMPC_CONFIGS, NMPC_TICKS, NMPC_STATE_TOL, model, device,
+            card, kres, nmpc_refs))
         line = kernel_line(kres, paths)
     except Fail as e:
         log(f"FAIL: {e}")
         return 1
+    finally:
+        if cpu_pool is not None:        # every worker stops here
+            cpu_pool.terminate()
+            cpu_pool.join()
 
     print(card_line(), flush=True)
     print(json.dumps(line), flush=True)

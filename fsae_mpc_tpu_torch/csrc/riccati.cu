@@ -1073,7 +1073,7 @@ extern "C" int riccati_assemble_factor_f32(
     float* Huinv, float* G, float* W, float* Mq, float* Lx, float* Lu,
     float* Hss, int batch, int N, int r, int nx, int ns, void* stream) {
   if (batch <= 0 || N <= 0 || r <= 0) return (int)cudaErrorInvalidValue;
-  if (ns != 1 && ns != 4) return (int)cudaErrorInvalidValue;
+  if (ns != 1 && ns != 2 && ns != 4) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   // a chunk: as many whole stages (rows, A, B) as a staging buffer holds
   // and the producers' item slots cover, or a run of one long stage's rows
@@ -1099,6 +1099,8 @@ extern "C" int riccati_assemble_factor_f32(
   })
   if (ns == 1) {
     LAUNCH_AF(1);
+  } else if (ns == 2) {
+    LAUNCH_AF(2);
   } else {
     LAUNCH_AF(4);
   }

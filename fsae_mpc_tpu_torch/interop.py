@@ -71,8 +71,7 @@ def ipm_options(src: Mapping) -> IpmOptions:
 
 def sim_config(src: Mapping) -> SimConfig:
     """A ``fsae_mpc_tpu.sim.closed_loop.SimConfig`` given by its fields
-    (``dataclasses.asdict``: ``mpc`` and ``ipm`` as mappings too).  The
-    NMPC modes' own fields are dropped: those modes raise in the port."""
+    (``dataclasses.asdict``: ``mpc`` and ``ipm`` as mappings too)."""
     kw = {f.name: src[f.name] for f in dataclasses.fields(SimConfig)}
     kw.update(mpc=mpc_params(src["mpc"]), ipm=ipm_options(src["ipm"]))
     return SimConfig(**kw)

@@ -131,3 +131,26 @@ def friction_polygon_group(x_lin, u_lin, mpc: MPCParams,
     return linearize_group(g, x_lin, u_lin,
                            np.full((K,), -np.inf), np.zeros((K,)),
                            np.full((K,), slack, np.int32))
+
+
+def friction_ellipse_group(x_lin, u_lin, mpc: MPCParams,
+                           params: VehicleParams, slack: int,
+                           state_rows=None, ctrl_cols=None):
+    """Exact (nonconvex) friction-ellipse row of the SQP transcriptions:
+    (Fcr/(m ac_max))^2 + (u1/al_max)^2 <= 1 + sigma.  The NMPC callers
+    place it on the pre-step state (``state_rows`` with -1 = the fixed
+    x0)."""
+    def g(x, u):
+        fcr = cm.rear_lateral_force(x, params)
+        return ((fcr / (params.m * params.ac_max)) ** 2
+                + (u[0] / params.al_max) ** 2)[None]
+
+    return linearize_group(g, x_lin, u_lin, [-np.inf], [1.0], [slack],
+                           state_rows=state_rows, ctrl_cols=ctrl_cols)
+
+
+def friction_ellipse_value(fcr, fx_per_m, params: VehicleParams):
+    """Exact friction-ellipse utilisation (Fcr/(m ac_max))^2 +
+    (a/al_max)^2."""
+    return ((fcr / (params.m * params.ac_max)) ** 2
+            + (fx_per_m / params.al_max) ** 2)

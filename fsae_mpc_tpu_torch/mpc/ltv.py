@@ -55,6 +55,15 @@ def _const(values, dtype, device) -> torch.Tensor:
     return t
 
 
+def _const_index(values, device) -> torch.Tensor:
+    """A static index vector, copied to ``device`` as :func:`_const`
+    copies a constant (no host synchronisation)."""
+    t = torch.tensor(np.asarray(values, np.int64))
+    if torch.device(device).type == "cuda":
+        t = t.pin_memory().to(device, non_blocking=True)
+    return t
+
+
 @dataclasses.dataclass(frozen=True)
 class LtvResult:
     u_opt: torch.Tensor     # (B, N, nu) optimal control trajectory
@@ -68,7 +77,7 @@ class LtvResult:
 def _qp_cost(A_bar, B_bar, d_bar, x0, x_ref, q_diag, r_diag,
              r_soft: Sequence[float], u_lb, u_ub):
     """Shared cost/bounds assembly of the condensed QP
-    (``generate_qp.m:29-33``).  ``q_diag`` (N*nx,), ``r_diag`` (N*nu,)."""
+    (``generate_qp.m:29-33``).  ``q_diag`` (N*nx,), ``r_diag`` (NC*nu,)."""
     Bsz, N, nx, ncu = B_bar.shape
     n_soft = len(r_soft)
     nv = ncu + n_soft
@@ -106,40 +115,47 @@ def _aligned(groups, N) -> bool:
 @_highest_precision
 def assemble_condensed_qp(A_bar, B_bar, d_bar, x0, x_ref, q_diag, r_diag,
                           r_soft: Sequence[float], groups, u_lb, u_ub):
-    """Assemble the condensed QP over v = [u_0..u_{N-1}, sigma_1..sigma_k].
+    """Assemble the condensed QP over v = [u_0..u_{NC-1}, sigma_1..sigma_k].
 
-    ``B_bar``: (B, N, nx, N*nu); ``groups``: stage-aligned
-    :class:`constraints.StageConstraint`s (``state_rows == ctrl_cols ==
-    arange(N)``, every LTV group).  Rows are group-major, each group's
-    stage-major, a soft two-sided group emitting its lower (+sigma) rows
-    and then its upper (-sigma) rows: the JAX package's order.  Returns
-    (H, g, A, lb, ub, lbA, ubA, const).  The JAX package's non-aligned
-    branch (collocation transcriptions) is not ported and raises.
+    ``B_bar``: (B, N, nx, NC*nu), NC >= N (collocation keeps one more
+    control than states); ``q_diag`` (N*nx,), ``r_diag`` (NC*nu,);
+    ``groups``: :class:`constraints.StageConstraint`s.  A group whose rows
+    are stage-aligned (``state_rows == ctrl_cols == arange(N)``, every
+    LTV group) goes through one fused product with the others; any other
+    reads the predicted state ``state_rows`` (-1: the fixed x0) and places
+    each stage's D into the control columns ``ctrl_cols`` (-1: none).
+    Rows are group-major, each group's stage-major, a soft two-sided group
+    emitting its lower (+sigma) rows and then its upper (-sigma) rows: the
+    JAX package's order.  Returns (H, g, A, lb, ub, lbA, ubA, const).
     """
     Bsz, N, nx, ncu = B_bar.shape
     nu = u_lb.shape[-1]
     n_soft = len(r_soft)
     dtype, dev = B_bar.dtype, B_bar.device
-    if ncu != N * nu or not _aligned(groups, N):
-        raise ValueError("condensed assembly of groups that are not "
-                         "stage-aligned (collocation) is not ported")
 
     H, g, lb_v, ub_v, const, x_pred = _qp_cost(
         A_bar, B_bar, d_bar, x0, x_ref, q_diag, r_diag, r_soft, u_lb, u_ub)
 
-    # ONE fused (N, R_tot, nx) @ (N, nx, N*nu) product and one
-    # block-diagonal D placement (static one-hot projections P) for all
-    # groups, then per-group slicing
-    C_all = torch.cat([grp.C for grp in groups], -2)          # (B, N, R, nx)
-    D_all = torch.cat([grp.D for grp in groups], -2)          # (B, N, R, nu)
-    P = np.zeros((N, nu, ncu))
-    for k in range(N):
-        P[k, :, k * nu:(k + 1) * nu] = np.eye(nu)
-    rows_all = (torch.einsum("bnri,bnij->bnrj", C_all, B_bar)
-                + torch.einsum("bnrk,nkj->bnrj", D_all,
-                               _const(P, dtype, dev)))
-    off_all = (torch.cat([grp.offset_const for grp in groups], -1)
-               + torch.einsum("bnri,bni->bnr", C_all, x_pred))
+    def placement(ccols):
+        """Static one-hot projections (Ng, nu, NC*nu) of each stage's
+        control into its columns (zero where ``ccols`` is -1)."""
+        P = np.zeros((len(ccols), nu, ncu))
+        for k, c in enumerate(ccols):
+            if c >= 0:
+                P[k, :, c * nu:(c + 1) * nu] = np.eye(nu)
+        return _const(P, dtype, dev)
+
+    aligned = ncu == N * nu and _aligned(groups, N)
+    if aligned:
+        # ONE fused (N, R_tot, nx) @ (N, nx, N*nu) product and one
+        # block-diagonal D placement for all groups, then per-group slicing
+        C_all = torch.cat([grp.C for grp in groups], -2)      # (B, N, R, nx)
+        D_all = torch.cat([grp.D for grp in groups], -2)      # (B, N, R, nu)
+        rows_all = (torch.einsum("bnri,bnij->bnrj", C_all, B_bar)
+                    + torch.einsum("bnrk,nkj->bnrj", D_all,
+                                   placement(np.arange(N))))
+        off_all = (torch.cat([grp.offset_const for grp in groups], -1)
+                   + torch.einsum("bnri,bni->bnr", C_all, x_pred))
 
     A_rows, lbA_rows, ubA_rows = [], [], []
 
@@ -154,13 +170,32 @@ def assemble_condensed_qp(A_bar, B_bar, d_bar, x0, x_ref, q_diag, r_diag,
 
     r_off = 0
     for grp in groups:
-        r = grp.C.shape[-2]
-        rows_u = rows_all[:, :, r_off:r_off + r].reshape(Bsz, N * r, ncu)
-        offset = off_all[:, :, r_off:r_off + r].reshape(Bsz, N * r)
-        r_off += r
-        lb_g = np.broadcast_to(grp.lb, (N, r)).reshape(-1)
-        ub_g = np.broadcast_to(grp.ub, (N, r)).reshape(-1)
-        sidx = np.broadcast_to(grp.slack_idx, (N, r)).reshape(-1)
+        Ng, r = grp.C.shape[-3], grp.C.shape[-2]
+        if aligned:
+            rows_u = rows_all[:, :, r_off:r_off + r]
+            offset = off_all[:, :, r_off:r_off + r]
+            r_off += r
+        else:
+            srows, ccols = grp.state_rows, grp.ctrl_cols    # static (Ng,)
+            # state sensitivity: the selected B_bar rows, 0 for fixed-x0
+            # rows, whose state is x0 itself
+            sel = _const_index(np.clip(srows, 0, N - 1), dev)
+            free = _const(srows >= 0, dtype, dev) > 0
+            B_sel = torch.where(free[:, None, None],
+                                B_bar.index_select(1, sel), 0.0)
+            x_sel = torch.where(free[:, None], x_pred.index_select(1, sel),
+                                x0[:, None, :])
+            rows_u = torch.einsum("bnri,bnij->bnrj", grp.C, B_sel)
+            if np.any(ccols >= 0):
+                rows_u = rows_u + torch.einsum("bnrk,nkj->bnrj", grp.D,
+                                               placement(ccols))
+            offset = (grp.offset_const
+                      + torch.einsum("bnri,bni->bnr", grp.C, x_sel))
+        rows_u = rows_u.reshape(Bsz, Ng * r, ncu)
+        offset = offset.reshape(Bsz, Ng * r)
+        lb_g = np.broadcast_to(grp.lb, (Ng, r)).reshape(-1)
+        ub_g = np.broadcast_to(grp.ub, (Ng, r)).reshape(-1)
+        sidx = np.broadcast_to(grp.slack_idx, (Ng, r)).reshape(-1)
         hard = sidx < 0
         if np.all(hard):
             emit(rows_u, offset, lb_g, ub_g, None, 0.0)

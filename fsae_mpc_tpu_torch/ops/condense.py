@@ -1,10 +1,13 @@
 """Condensing: stage-wise affine dynamics -> dense prediction matrices
-(port of ``condense`` and ``rollout`` of ``fsae_mpc_tpu.ops.condense``).
+(port of ``condense``, ``condense_general`` and ``rollout`` of
+``fsae_mpc_tpu.ops.condense``).
 
 Inputs are the discrete stage matrices (x_{k+1} = Ad x_k + Bd u_k + dd),
 batch first.  :func:`condense` is the horizon recurrence written as a
 plain loop over the N stages, the plain version of the hand-written
-kernel in ``ops/kernels/condense.py``.
+kernel in ``ops/kernels/condense.py``.  :func:`condense_general` (the
+collocation transcriptions' multi-control recurrence) has no TPU kernel
+in the JAX package and stays plain PyTorch.
 """
 
 from __future__ import annotations
@@ -40,6 +43,43 @@ def condense(Ad, Bd, dd):
         phi = A @ phi
         G = A @ G                   # a new tensor: the stored G_{i-1} stays
         G[:, :, i * nu:(i + 1) * nu] = Bd[:, i]
+        delta = torch.einsum("bij,bj->bi", A, delta) + dd[:, i]
+        A_bar.append(phi)
+        B_bar.append(G)
+        d_bar.append(delta)
+    return torch.stack(A_bar, 1), torch.stack(B_bar, 1), torch.stack(d_bar, 1)
+
+
+@_highest_precision
+def condense_general(Ad, dd, B_terms, n_controls: int,
+                     ctrl_stride: int = 1):
+    """Condensing of a recurrence whose step couples several controls:
+
+        x_{i+1} = Ad_i x_i + sum_k Bd_k[i] u_{i*ctrl_stride + off_k} + dd_i
+
+    ``Ad`` (B, N, nx, nx), ``dd`` (B, N, nx); ``B_terms``: a list of
+    ``(Bd (B, N, nx, nu), off)``; ``n_controls``: the length of the
+    control trajectory.  Trapezoidal collocation couples u_i and u_{i+1}
+    (stride 1), Hermite-Simpson (u_2i, u_2i+1, u_2i+2) (stride 2).
+
+    Returns (A_bar (B, N, nx, nx), B_bar (B, N, nx, n_controls*nu),
+    d_bar (B, N, nx)).
+    """
+    Bsz, N, nx = dd.shape
+    nu = B_terms[0][0].shape[-1]
+    phi = torch.eye(nx, dtype=Ad.dtype, device=Ad.device).expand(Bsz, nx,
+                                                                 nx)
+    G = torch.zeros((Bsz, nx, n_controls * nu), dtype=Ad.dtype,
+                    device=Ad.device)
+    delta = torch.zeros((Bsz, nx), dtype=Ad.dtype, device=Ad.device)
+    A_bar, B_bar, d_bar = [], [], []
+    for i in range(N):
+        A = Ad[:, i]
+        phi = A @ phi
+        G = A @ G                   # a new tensor: the stored G_{i-1} stays
+        for Bd, off in B_terms:
+            col = (i * ctrl_stride + off) * nu
+            G[:, :, col:col + nu] += Bd[:, i]
         delta = torch.einsum("bij,bj->bi", A, delta) + dd[:, i]
         A_bar.append(phi)
         B_bar.append(G)

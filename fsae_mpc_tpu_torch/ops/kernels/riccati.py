@@ -40,7 +40,7 @@ import torch
 from .build import Kernel, Library, check_tensors, empty, route
 
 SUPPORTED_NX = (5, 7, 9)
-SUPPORTED_NS = (1, 4)
+SUPPORTED_NS = (1, 2, 4)
 
 
 # ---------------------------------------------------------------------------

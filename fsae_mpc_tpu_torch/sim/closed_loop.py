@@ -5,7 +5,8 @@ One lap per instance of a batch, one control tick per ``mpc.dt`` of
 simulated time:
 
   tick:  project the plant pose onto the track  ->  speed-ramp reference
-         ->  solve the LTV-MPC QP (warm-started from the last tick)
+         ->  solve the MPC: the LTV QP (warm-started from the last tick),
+             or an NMPC SQP from the shifted last trajectory
          ->  actuate through PID loops + RK6 substeps of the Cartesian
              Pacejka plant  ->  per-tick traces
 
@@ -17,8 +18,11 @@ fixed sequence of device work with no host synchronisation (the f32
 presets are non-adaptive), and :func:`simulate_timed` steps from the host
 and times each tick.
 
-Only ``mode="ltv"`` with the speed-ramp reference is ported; the NMPC
-modes and the raceline reference raise ``ValueError``.
+Modes: ``"ltv"``, ``"ms-nmpc"`` (multiple shooting, ``stepper`` euler,
+rk2 or rk4) and ``"c-nmpc"`` with the trapezoidal transcription, each
+model on both QP backends.  Hermite-Simpson (``transcription="hs"``) and
+the raceline reference are not ported and raise ``ValueError`` before
+any work.
 """
 
 from __future__ import annotations
@@ -33,20 +37,22 @@ from ..config import MPCParams, STEER_PID, VEL_PID, VehicleParams
 from ..models import cartesian as cart
 from ..models import curvilinear as cm
 from ..models import integrators, pid, transforms
-from ..mpc import ltv
+from ..mpc import collocation, ltv, sqp
 from ..ops import ipm, riccati
 
 
 @dataclasses.dataclass(frozen=True)
 class SimConfig:
-    """Static simulation configuration: the JAX package's fields less the
-    NMPC modes' own (``sqp_iters``, ``stepper``, ``transcription``),
-    which are not ported."""
+    """Static simulation configuration: the JAX package's fields."""
 
     model: str = "kinematic"        # "kinematic" | "dynamic"
-    mode: str = "ltv"               # "ltv" ("ms-nmpc", "c-nmpc" raise)
+    mode: str = "ltv"               # "ltv" | "ms-nmpc" | "c-nmpc"
     n_ticks: int = 1000
     n_substeps: int = 10
+    sqp_iters: int = 3              # SQP iterations a tick (NMPC modes)
+    stepper: str = "rk2"            # MS-NMPC shooting step: "euler" |
+                                    # "rk2" | "rk4"
+    transcription: str = "trapezoidal"  # C-NMPC ("hs" raises)
     reference: str = "speed_ramp"   # ("raceline" raises)
     mpc: MPCParams = MPCParams()
     ipm: ipm.IpmOptions = ipm.IpmOptions()
@@ -103,9 +109,14 @@ def _conv_bars(cfg: SimConfig):
 
 
 def _check_config(cfg: SimConfig) -> None:
-    if cfg.mode != "ltv":
-        raise ValueError(f"mode={cfg.mode!r} (NMPC) is not ported; use "
-                         "mode='ltv'")
+    if cfg.mode not in ("ltv", "ms-nmpc", "c-nmpc"):
+        raise ValueError(f"unknown mode {cfg.mode!r}")
+    if cfg.mode == "c-nmpc" and cfg.transcription != "trapezoidal":
+        raise ValueError(f"transcription={cfg.transcription!r} is not "
+                         "ported (Hermite-Simpson waits for the dense "
+                         "kernels past n = 152); use 'trapezoidal'")
+    if cfg.mode == "ms-nmpc" and cfg.stepper not in ("euler", "rk2", "rk4"):
+        raise ValueError(f"unknown stepper={cfg.stepper!r}")
     if cfg.reference != "speed_ramp":
         raise ValueError(f"reference={cfg.reference!r} is not ported (it "
                          "needs the min-time planner); use 'speed_ramp'")
@@ -117,8 +128,11 @@ def _check_config(cfg: SimConfig) -> None:
 
 def _initial_guess(cfg: SimConfig, Bsz, dtype, device):
     """The MPC's first linearisation trajectory: quadratic arclength and a
-    linear speed ramp at 10 m/s^2, constant acceleration control."""
+    linear speed ramp at 10 m/s^2, constant acceleration control; N+1
+    points for collocation, which keeps the initial point."""
     N, dt = cfg.mpc.n_steps, cfg.mpc.dt
+    if cfg.mode == "c-nmpc":
+        N = N + 1
     nx = 5 if cfg.model == "kinematic" else 7
     t = dt * torch.arange(1, N + 1, dtype=dtype, device=device)
     x_opt = torch.zeros((Bsz, N, nx), dtype=dtype, device=device)
@@ -202,10 +216,44 @@ def _freeze(done, old, new):
     return torch.where(mask, old, new)
 
 
+def _solver(track, params: VehicleParams, cfg: SimConfig):
+    """The tick's controller ``solver(x0, x_ref, x_opt, u_opt, warm)``.
+
+    LTV carries the previous tick's solver result as its warm start.  The
+    NMPC modes start from the last trajectory shifted by one rk2 step of
+    the controller's model (rk2 whatever ``cfg.stepper`` is, as the JAX
+    package shifts), warm-start only within a tick's SQP loop, and pass
+    ``warm=None`` to its first subproblem: a cold start every tick, as in
+    the JAX package (an unshifted warm start measured neutral at best
+    there)."""
+    kinematic = cfg.model == "kinematic"
+    mpc, opts, backend = cfg.mpc, cfg.ipm, cfg.qp_backend
+    if cfg.mode == "ltv":
+        base = ltv.ltv_mpc_kinematic if kinematic else ltv.ltv_mpc_dynamic
+        return lambda x0, x_ref, x_opt, u_opt, warm: base(
+            x0, x_ref, track, params, mpc, x_opt, u_opt, opts, warm=warm,
+            backend=backend)
+    f_curv = cm.f_curv_kin if kinematic else cm.f_curv_dyn_only
+    f = lambda x, u: f_curv(x, u, track, params)
+    step = lambda x, u: integrators.rk2_step(f, x, u, mpc.dt)
+    if cfg.mode == "ms-nmpc":
+        base = sqp.ms_nmpc_kinematic if kinematic else sqp.ms_nmpc_dynamic
+        kw = dict(stepper=cfg.stepper)
+    else:
+        base = (collocation.trapezoidal_nmpc_kinematic if kinematic
+                else collocation.trapezoidal_nmpc_dynamic)
+        kw = {}
+    return lambda x0, x_ref, x_opt, u_opt, warm: base(
+        x0, x_ref, track, params, mpc,
+        *sqp.shift_trajectory(x_opt, u_opt, step), opts,
+        sqp_iters=cfg.sqp_iters, backend=backend, **kw)
+
+
 def _build_tick(track, params: VehicleParams, cfg: SimConfig, x_init):
     """The per-tick transition ``tick(carry) -> (carry, out)`` and its
-    initial carry ``(x, x_opt, u_opt, pids, done, warm)``.  Shared by
-    :func:`simulate` and :func:`simulate_timed`."""
+    initial carry ``(x, x_opt, u_opt, pids, done, warm)`` (``warm`` None
+    in the NMPC modes).  Shared by :func:`simulate` and
+    :func:`simulate_timed`."""
     _check_config(cfg)
     dtype, device = track.px.dtype, track.px.device
     kinematic = cfg.model == "kinematic"
@@ -215,7 +263,10 @@ def _build_tick(track, params: VehicleParams, cfg: SimConfig, x_init):
         x_init = torch.zeros((1, 7), dtype=dtype, device=device)
     x_init = x_init.reshape(-1, 7).to(device=device, dtype=dtype)
     Bsz = x_init.shape[0]
-    base = ltv.ltv_mpc_kinematic if kinematic else ltv.ltv_mpc_dynamic
+    solver = _solver(track, params, cfg)
+    # actuation setpoints: the first predicted stage; collocation's first
+    # free point is 1 (point 0 is x0)
+    lead = 1 if cfg.mode == "c-nmpc" else 0
     c_pres, c_mu = _conv_bars(cfg)
 
     def tick(carry):
@@ -232,13 +283,10 @@ def _build_tick(track, params: VehicleParams, cfg: SimConfig, x_init):
                              -1)
         done = done | (s >= track.L)
 
-        res = base(x0, _reference(cfg, x0, x[:, 3]), track, params, mpc,
-                   x_opt, u_opt, cfg.ipm, warm=warm,
-                   backend=cfg.qp_backend)
+        res = solver(x0, _reference(cfg, x0, x[:, 3]), x_opt, u_opt, warm)
 
-        # actuation setpoints: the first predicted stage
-        x_new, pids_new = plant_substeps(x, res.x_opt[:, 0, 3],
-                                         res.x_opt[:, 0, nx - 1], pids,
+        x_new, pids_new = plant_substeps(x, res.x_opt[:, lead, 3],
+                                         res.x_opt[:, lead, nx - 1], pids,
                                          params, dt, cfg.n_substeps)
 
         # an instance whose lap is done keeps everything from then on
@@ -246,7 +294,8 @@ def _build_tick(track, params: VehicleParams, cfg: SimConfig, x_init):
         x_opt = _freeze(done, x_opt, res.x_opt)
         u_opt = _freeze(done, u_opt, res.u_opt)
         pids = _freeze(done, pids, pids_new)
-        warm = _freeze(done, warm, res.qp)
+        if warm is not None:
+            warm = _freeze(done, warm, res.qp)
 
         # the per-instance model reads its state along the first axis
         fcr = cm.rear_lateral_force(x.T, params)
@@ -264,7 +313,8 @@ def _build_tick(track, params: VehicleParams, cfg: SimConfig, x_init):
     pids0 = (pid.pid_init(zero), pid.pid_init(zero))
     carry0 = (x_init, x_opt0, u_opt0, pids0,
               torch.zeros((Bsz,), dtype=torch.bool, device=device),
-              _zero_warm(cfg, Bsz, dtype, device))
+              _zero_warm(cfg, Bsz, dtype, device) if cfg.mode == "ltv"
+              else None)
     return tick, carry0
 
 

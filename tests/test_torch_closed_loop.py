@@ -2,9 +2,12 @@
 
 ``simulate`` at a batch of two laps, N=8, 10 ticks, on fsg2019 with
 ``MPC_F32`` and ``F32_OPTS``, in f64 on the CPU, for kinematic/dense and
-dynamic/Riccati, against ``fsae_mpc_tpu.sim.closed_loop.simulate``
-(compiled once per configuration, run per instance), every trace and
-summary field per instance.  The presets' own solver paths are held
+dynamic/Riccati LTV and kinematic/dense multiple-shooting NMPC (three
+rk2-shooting SQP iterations a tick from the shifted last trajectory, no
+warm start across ticks), against
+``fsae_mpc_tpu.sim.closed_loop.simulate`` (compiled once per
+configuration, run per instance), every trace and summary field per
+instance.  The presets' own solver paths are held
 against the JAX package in the tick tests; the card runs the sim under
 ``F32_ACCURATE`` and ``F32_PRODUCTION`` (``chip_smoke.py`` phase 4).
 
@@ -39,6 +42,7 @@ every boolean and count (``converged``, ``active``, ``solver_iters``,
 """
 
 import dataclasses
+from concurrent.futures import ThreadPoolExecutor
 
 import jax
 import jax.numpy as jnp
@@ -75,15 +79,18 @@ S1 = 5.0                      # instance 1's start on the centreline
 FINISH = S1 + 1.5             # the moved finish line
 F64 = torch.float64
 TOL = 1e-9
-CONFIGS = {"kinematic-dense": ("kinematic", "dense"),
-           "dynamic-riccati": ("dynamic", "riccati")}
+CONFIGS = {"kinematic-dense": ("kinematic", "dense", "ltv"),
+           "dynamic-riccati": ("dynamic", "riccati", "ltv"),
+           "ms-nmpc-kinematic-dense": ("kinematic", "dense", "ms-nmpc")}
+FAST_COMPILE = {"xla_backend_optimization_level": 0,
+                "xla_llvm_disable_expensive_passes": True}
 EXACT = ("converged", "active", "solver_iters", "lap_done", "max_iters")
 
 
 def _jax_cfg(name):
-    model, backend = CONFIGS[name]
+    model, backend, mode = CONFIGS[name]
     return jsim.SimConfig(
-        model=model, qp_backend=backend, n_ticks=TICKS,
+        model=model, qp_backend=backend, mode=mode, n_ticks=TICKS,
         mpc=dataclasses.replace(jconfig.MPC_F32, n_steps=N),
         ipm=jipm.F32_OPTS)
 
@@ -98,20 +105,29 @@ def jax_runs():
     x_init[0, 3] = V0
     x_init[1, :4] = [float(x), float(y), float(th), 5.0]
     params = jconfig.VehicleParams()
-    runs = {}
-    for name in CONFIGS:
-        cfg = _jax_cfg(name)
-        fn = jax.jit(lambda xi: jsim.simulate(track, params, cfg, xi))
+
+    def run(low):
+        fn = low.compile(compiler_options=FAST_COMPILE)
         outs = [fn(jnp.asarray(xi)) for xi in x_init]
-        runs[name] = {f.name: np.stack([np.asarray(getattr(o, f.name))
-                                        for o in outs])
-                      for f in dataclasses.fields(jsim.SimOutputs)}
-    return x_init, runs
+        return {f.name: np.stack([np.asarray(getattr(o, f.name))
+                                  for o in outs])
+                for f in dataclasses.fields(jsim.SimOutputs)}
+
+    # each configuration is compiled and run on a worker thread (XLA
+    # compiles without the GIL) while the next one is traced, and while
+    # the port runs its laps (``port_runs``); the tests take the results
+    pool = ThreadPoolExecutor(len(CONFIGS))
+    futs = {name: pool.submit(run, jax.jit(
+        lambda xi, cfg=_jax_cfg(name): jsim.simulate(
+            track, params, cfg, xi)).lower(jnp.asarray(x_init[0])))
+        for name in CONFIGS}
+    yield x_init, futs
+    pool.shutdown()
 
 
 @pytest.fixture(scope="module")
 def port_runs(jax_runs):
-    x_init, runs = jax_runs
+    x_init, _ = jax_runs
     track, _ = load_track("data/fsg2019.csv", dtype=F64, device="cpu")
     track = dataclasses.replace(track, L=torch.tensor(FINISH, dtype=F64))
     out = {}
@@ -125,7 +141,8 @@ def port_runs(jax_runs):
 @pytest.mark.parametrize("name", list(CONFIGS))
 def test_simulate_matches_jax(name, jax_runs, port_runs):
     """Every trace and summary field, per instance."""
-    ref = interop.sim_outputs(jax_runs[1][name], dtype=F64, device="cpu")
+    ref = interop.sim_outputs(jax_runs[1][name].result(), dtype=F64,
+                              device="cpu")
     got = port_runs[1][name]
     for f in dataclasses.fields(sim.SimOutputs):
         a, b = getattr(got, f.name), getattr(ref, f.name)
@@ -177,8 +194,9 @@ def test_simulate_timed_stops_early(port_runs):
 
 
 def test_unported_modes_raise(port_runs):
-    """The NMPC modes and the raceline reference raise before any work."""
-    for change in ({"mode": "ms-nmpc"}, {"mode": "c-nmpc"},
+    """Hermite-Simpson collocation and the raceline reference raise before
+    any work."""
+    for change in ({"mode": "c-nmpc", "transcription": "hs"},
                    {"reference": "raceline"}):
         cfg = dataclasses.replace(sim.SimConfig(n_ticks=1), **change)
         for run in (sim.simulate, sim.simulate_timed):

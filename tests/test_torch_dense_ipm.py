@@ -108,14 +108,19 @@ def jax_results():
         return lambda *a: jipm.solve_qp(*a, opts)
 
     one = [jnp.asarray(a[0]) for a in qp_c]
-    res_s = jax.eval_shape(solve(jipm.F32_OPTS, False), *one)
-    lowered = {k: jax.jit(solve(jo, k == "opts_warm")).lower(
-                   *one, *([res_s] if k == "opts_warm" else []))
-               for k, (_, jo) in CASES.items()}
-    with ThreadPoolExecutor(len(lowered)) as pool:
-        compiled = dict(zip(lowered, pool.map(
-            lambda low: low.compile(compiler_options=FAST_COMPILE),
-            lowered.values())))
+    # each program is compiled on a worker thread while the next one is
+    # traced; the cold solve's trace gives the warm start's shapes
+    compile_ = lambda low: low.compile(compiler_options=FAST_COMPILE)
+    with ThreadPoolExecutor(len(CASES)) as pool:
+        cold_t = jax.jit(solve(CASES["opts_cold"][1], False)).trace(*one)
+        futs = {"opts_cold": pool.submit(compile_, cold_t.lower())}
+        for k, (_, jo) in CASES.items():
+            if k != "opts_cold":
+                futs[k] = pool.submit(compile_, jax.jit(
+                    solve(jo, k == "opts_warm")).trace(
+                        *one, *([cold_t.out_info] if k == "opts_warm"
+                                else [])).lower())
+        compiled = {k: f.result() for k, f in futs.items()}
     per_case = {k: [] for k in CASES}
     for b in range(B):
         qc = [jnp.asarray(a[b]) for a in qp_c]

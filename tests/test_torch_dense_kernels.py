@@ -49,6 +49,8 @@ def _one_torch_thread():
 B, N, NU, NCHOL = 3, 8, 2, 12
 TOL = 1e-10
 F64 = torch.float64
+FAST_COMPILE = {"xla_backend_optimization_level": 0,
+                "xla_llvm_disable_expensive_passes": True}
 
 
 def _stage_inputs(nx, seed):
@@ -68,17 +70,14 @@ def _chol_inputs(seed=3):
     return K, rng.standard_normal((B, NCHOL))
 
 
-@pytest.fixture(scope="module")
-def ref():
+def _references(stages, K, rhs):
     out = {"condense": {}}
-    for nx in (7, 5):
-        d = {k: jnp.asarray(v) for k, v in _stage_inputs(nx, nx).items()}
+    for nx, d in stages.items():
         out["condense"][nx] = dict(
             scan=jax.vmap(jcondense)(d["Ad"], d["Bd"], d["dd"]),
             lanes=jpcondense.condense_lanes(d["Ad"], d["Bd"], d["dd"]),
             rollout=jax.vmap(jrollout)(d["Ad"], d["Bd"], d["dd"], d["x0"],
                                        d["u"]))
-    K, rhs = (jnp.asarray(a) for a in _chol_inputs())
     L_lapack = jax.vmap(jnp.linalg.cholesky)(K)
     L_lanes = jpchol.factor_lanes(K)
     # the solves on the factor of the SPD instances' own K (the indefinite
@@ -88,6 +87,19 @@ def ref():
         x_lapack=jax.vmap(lambda L, b: jax.scipy.linalg.cho_solve(
             (L, True), b))(L_lapack, rhs),
         x_lanes=jpchol.solve_lanes(L_lanes, rhs))
+    return out
+
+
+@pytest.fixture(scope="module")
+def ref():
+    """The JAX references as one program (one trace and one compile, in
+    place of a compile of every operation run eagerly)."""
+    stages = {nx: {k: jnp.asarray(v)
+                   for k, v in _stage_inputs(nx, nx).items()}
+              for nx in (7, 5)}
+    K, rhs = (jnp.asarray(a) for a in _chol_inputs())
+    out = jax.jit(_references).lower(stages, K, rhs).compile(
+        compiler_options=FAST_COMPILE)(stages, K, rhs)
     return jax.tree_util.tree_map(np.asarray, out)
 
 

@@ -176,8 +176,9 @@ def test_kernel_wrappers_refuse_what_they_cannot_run(monkeypatch):
     cuda, cpu, f32 = torch.device("cuda"), torch.device("cpu"), torch.float32
     kr.check_entry(cuda, f32, 7, 2, 4)              # the main path
     kr.check_entry(cuda, f32, 5, 2, 1)              # the kinematic widths
+    kr.check_entry(cuda, f32, 9, 2, 2)              # trapezoidal dynamic
     for dtype, nx, nu, ns in ((F64, 7, 2, 4), (f32, 7, 3, 4),
-                              (f32, 6, 2, 4), (f32, 7, 2, 2)):
+                              (f32, 6, 2, 4), (f32, 7, 2, 3)):
         with pytest.raises(ValueError, match='device="cpu"'):
             kr.check_entry(cuda, dtype, nx, nu, ns)
         kr.check_entry(cpu, dtype, nx, nu, ns)      # the plain versions
@@ -213,7 +214,9 @@ def test_port_never_imports_jax():
             "fsae_mpc_tpu_torch.interop, fsae_mpc_tpu_torch.track, "
             "fsae_mpc_tpu_torch.sim, fsae_mpc_tpu_torch.models.cartesian, "
             "fsae_mpc_tpu_torch.models.transforms, "
-            "fsae_mpc_tpu_torch.models.pid; "
+            "fsae_mpc_tpu_torch.models.pid, fsae_mpc_tpu_torch.mpc.sqp, "
+            "fsae_mpc_tpu_torch.mpc.collocation, "
+            "fsae_mpc_tpu_torch.ops.linalg; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'fsae_mpc_tpu.'))]; "
             "assert not bad, bad")

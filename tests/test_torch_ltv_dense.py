@@ -90,12 +90,16 @@ def jax_results():
     args = [jnp.asarray(a, jnp.float64)
             for a in (x0, x_ref, x_lin, u_lin, x0_w)]
     one = [a[0] for a in args[:4]]
-    res_s = jax.eval_shape(tick, *one)
-    lowered = [jax.jit(tick).lower(*one),
-               jax.jit(tick).lower(*one, res_s.qp)]
-    with ThreadPoolExecutor(len(lowered)) as pool:
-        cold_c, warm_c = pool.map(
-            lambda low: low.compile(compiler_options=FAST_COMPILE), lowered)
+    # each program is compiled on a worker thread (XLA compiles without the
+    # GIL) while the next one is traced; the cold trace gives the warm
+    # start's shapes
+    compile_ = lambda low: low.compile(compiler_options=FAST_COMPILE)
+    cold_t = jax.jit(tick).trace(*one)
+    with ThreadPoolExecutor(2) as pool:
+        cold_f = pool.submit(compile_, cold_t.lower())
+        warm_f = pool.submit(compile_, jax.jit(tick).trace(
+            *one, cold_t.out_info.qp).lower())
+        cold_c, warm_c = cold_f.result(), warm_f.result()
 
     per_case = {"cold": [], "warm": []}
     for b in range(B):

@@ -100,11 +100,13 @@ def jax_results():
         return run
 
     one = [a[0] for a in args]
-    lowered = [jax.jit(ticks(b)).lower(*one) for b in BACKENDS]
-    with ThreadPoolExecutor(len(lowered)) as pool:
-        compiled = dict(zip(BACKENDS, pool.map(
-            lambda low: low.compile(compiler_options=FAST_COMPILE),
-            lowered)))
+    # each backend's program is compiled on a worker thread while the next
+    # one is traced
+    compile_ = lambda low: low.compile(compiler_options=FAST_COMPILE)
+    with ThreadPoolExecutor(len(BACKENDS)) as pool:
+        futs = {b: pool.submit(compile_, jax.jit(ticks(b)).lower(*one))
+                for b in BACKENDS}
+        compiled = {b: f.result() for b, f in futs.items()}
 
     results = {}
     for backend in BACKENDS:

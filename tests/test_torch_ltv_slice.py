@@ -108,15 +108,21 @@ def jax_results():
     args = [jnp.asarray(a, jnp.float64)
             for a in (x0, x_ref, x_lin, u_lin, x0_w)]
     one = [a[0] for a in args]
-    qp_s, _ = jax.eval_shape(build, *one[:4])
-    res_s = jax.eval_shape(solves["cold"], qp_s, one[0])
-    lowered = [jax.jit(build).lower(*one[:4])] + [
-        jax.jit(fn).lower(qp_s, one[0], *([res_s] if k == "warm" else []))
-        for k, fn in solves.items()]
-    with ThreadPoolExecutor(len(lowered)) as pool:
-        compiled = list(pool.map(
-            lambda low: low.compile(compiler_options=FAST_COMPILE),
-            lowered))
+    # each program is compiled on a worker thread while the next one is
+    # traced; the build's and the cold solve's traces give the shapes the
+    # solves and the warm start take
+    compile_ = lambda low: low.compile(compiler_options=FAST_COMPILE)
+    with ThreadPoolExecutor(len(solves) + 1) as pool:
+        build_t = jax.jit(build).trace(*one[:4])
+        qp_s = build_t.out_info[0]
+        futs = [pool.submit(compile_, build_t.lower())]
+        res_s = None
+        for k, fn in solves.items():
+            t = jax.jit(fn).trace(qp_s, one[0],
+                                  *([res_s] if k == "warm" else []))
+            res_s = t.out_info if k == "cold" else res_s
+            futs.append(pool.submit(compile_, t.lower()))
+        compiled = [f.result() for f in futs]
     build_c, sol_c = compiled[0], dict(zip(solves, compiled[1:]))
 
     per_case = {k: [] for k in solves}

@@ -101,16 +101,18 @@ def jax_out(inputs):
             *asm[:3], a["Ad"], a["Bd"], asm[3], a["rx"], a["ru"], a["re"]))
 
     args = {k: jnp.asarray(v, jnp.float64) for k, v in inputs.items()}
-    asm_s = jax.eval_shape(scans, args)["assemble"]
-    lowered = [jax.jit(scans).lower(args)] + [
-        jax.jit(fn).lower(args, *([asm_s] if k == "apply" else []))
-        for k, fn in lanes.items()]
-    # one executable each, compiled side by side (XLA:CPU compiles on one
-    # thread)
-    with ThreadPoolExecutor(len(lowered)) as pool:
-        compiled = list(pool.map(
-            lambda low: low.compile(compiler_options=FAST_COMPILE),
-            lowered))
+    # one executable each (XLA:CPU compiles on one thread), each compiled
+    # on a worker thread while the next one is traced; the scans' trace
+    # gives the shapes the lanes' apply takes
+    compile_ = lambda low: low.compile(compiler_options=FAST_COMPILE)
+    with ThreadPoolExecutor(len(lanes) + 1) as pool:
+        scans_t = jax.jit(scans).trace(args)
+        asm_s = scans_t.out_info["assemble"]
+        futs = [pool.submit(compile_, scans_t.lower())] + [
+            pool.submit(compile_, jax.jit(fn).trace(
+                args, *([asm_s] if k == "apply" else [])).lower())
+            for k, fn in lanes.items()]
+        compiled = [f.result() for f in futs]
     out = compiled[0](args)
     out["lanes"] = {k: c(args, *([out["assemble"]] if k == "apply" else []))
                     for k, c in zip(lanes, compiled[1:])}

@@ -14,7 +14,7 @@ the stand-in runtime beside this file (``cuda_runtime.h``) into
 tensors.
 
 riccati.cu: every case that ``chip_smoke.kernel_phase`` checks at its odd
-batch (nx 5/7/9, ns 1/4, K = ns+1 and K = 1, N=40, r=20) runs through the
+batch (nx 5/7/9, ns 1/2/4, K = ns+1 and K = 1, N=40, r=20) runs through the
 four entry points; ``--stages`` and ``--rows`` change N and r (``--rows
 300`` splits each stage's rows over several chunks).  Each output is held
 against the plain version normwise and per instance and output block
@@ -142,12 +142,16 @@ def run_riccati(lib_path: str, batch: int, plant: int, N: int,
         return norm, cs.inst_err(outs, refs)
 
     worst = {}
-    cs.R = R
     for nx in kr.SUPPORTED_NX:
         for ns in kr.SUPPORTED_NS:
+            if 2 * ns > R:
+                continue        # each slack needs a lower and an upper row
             for K in (ns + 1, 1):
+                # few rows leave each stage's Gram block rank-deficient:
+                # Dr over three decades there, as chip_smoke.kernel_phase
                 x = cs.kernel_inputs(batch, N, K, cs.SEED + batch + K + nx,
-                                     "cpu", nx, ns)
+                                     "cpu", nx, ns, R,
+                                     6.0 if R >= cs.R else 3.0)
                 fac_in = (x["Ad"], x["Bd"], x["Qb"], x["Rb"], x["M"])
                 asm_in = (x["C"], x["D"], x["Ws"], x["Dr"], x["qbd"],
                           x["rbd"], x["Ad"], x["Bd"])

@@ -5,6 +5,7 @@ computed on a CPU.
     python3 tools/sim_reference.py t64
     python3 tools/sim_reference.py port-lap
     python3 tools/sim_reference.py divergence [--ticks 20] [--check 4]
+                                              [--nmpc]
 
 ``t64``: the JAX package's f64 lap of fsg2019 in the configuration of its
 ``tests/test_laps.py`` f32-equivalence test (dynamic model, dense backend,
@@ -20,7 +21,9 @@ machine; ``chip_smoke.py`` pins the number it prints (``LAP_T64``).
 phase-4 scenarios (instances 0..check-1 of ``sim_scenarios``) and
 configurations, in f32 and in f64, and the largest |x_f32 - x_f64| over
 the ticks per plant state: the floor below which the card's f32 laps
-cannot be held to the CPU's.
+cannot be held to the CPU's.  With ``--nmpc``: the same for phase 6's
+NMPC configurations (``chip_smoke.NMPC_CONFIGS``), keyed by mode and
+model.
 """
 
 from __future__ import annotations
@@ -81,7 +84,7 @@ def _summary(out, seconds, index=None):
     return d
 
 
-def divergence(ticks, check):
+def divergence(ticks, check, nmpc=False):
     import numpy as np
     import torch
     import chip_smoke
@@ -91,10 +94,12 @@ def divergence(ticks, check):
     from fsae_mpc_tpu_torch.track import load_track
 
     x_init = chip_smoke.sim_scenarios(check)
+    configs = (chip_smoke.NMPC_CONFIGS if nmpc else
+               [("ltv",) + c for c in chip_smoke.SIM_CONFIGS])
     out = {}
-    for model, backend, preset in chip_smoke.SIM_CONFIGS:
-        cfg = SimConfig(model=model, qp_backend=backend, n_ticks=ticks,
-                        mpc=MPC_F32, ipm=getattr(ipm, preset))
+    for mode, model, backend, preset in configs:
+        cfg = SimConfig(model=model, mode=mode, qp_backend=backend,
+                        n_ticks=ticks, mpc=MPC_F32, ipm=getattr(ipm, preset))
         xs = {}
         for dtype in (torch.float32, torch.float64):
             track, _ = load_track(TRACK, dtype=dtype, device="cpu")
@@ -102,11 +107,12 @@ def divergence(ticks, check):
             res = simulate(track, VehicleParams(), cfg,
                            torch.tensor(x_init, dtype=dtype))
             xs[dtype] = res.x_history.double().numpy()
-            print(f"{model}/{backend}/{preset} {dtype}: "
+            print(f"{mode}/{model}/{backend}/{preset} {dtype}: "
                   f"{time.perf_counter() - t0:.1f} s", file=sys.stderr)
         d = np.abs(xs[torch.float32] - xs[torch.float64])
-        out[model] = {"per_state": d.max((0, 1)).tolist(),
-                      "per_tick": d.max((0, 2)).tolist()}
+        out[f"{mode}/{model}" if nmpc else model] = {
+            "per_state": d.max((0, 1)).tolist(),
+            "per_tick": d.max((0, 2)).tolist()}
     return out
 
 
@@ -115,13 +121,14 @@ def main() -> int:
     ap.add_argument("what", choices=("t64", "port-lap", "divergence"))
     ap.add_argument("--ticks", type=int, default=20)
     ap.add_argument("--check", type=int, default=4)
+    ap.add_argument("--nmpc", action="store_true")
     a = ap.parse_args()
     if a.what == "t64":
         res = t64()
     elif a.what == "port-lap":
         res = port_lap()
     else:
-        res = divergence(a.ticks, a.check)
+        res = divergence(a.ticks, a.check, a.nmpc)
     print(json.dumps(res))
     return 0
 
