@@ -24,15 +24,20 @@ Phases (any failure exits non-zero before the result lines):
                  and at B=37 for every template instance (nx 5/7/9 by ns
                  1/2/4); condense at (B=1024, N=40, nx=7, nu=2) and
                  at B=37 with nx 7 and 5; the dense Cholesky factor and
-                 solve at n=84, 81, 82 and 83 (the LTV and NMPC QPs),
-                 B=1024 and B=37, on SPD matrices
+                 solve at n=84, 81, 82 and 83 (the LTV and NMPC QPs), 163
+                 (Hermite-Simpson: the six-slot build, past 48 KB of
+                 shared memory) and 192 (the widest), B=1024 and B=37, on
+                 SPD matrices
                  whose diagonal spans the IPM's range (up to its f32
                  complementarity cap, 1e7), normwise and entry by entry
                  (componentwise backward error, also of the solve on the
                  factor kernel's L; faults built on the data, the
                  factor's planted fault, a trailing-update tile skipped,
                  and the solve's, column 40's forward update skipped or
-                 the back sweep reading columns for rows, must fail it).
+                 the back sweep reading columns for rows, and above n =
+                 160 the factor's sixth slot left unwritten and the
+                 solve's rows 160 on dropped from the back sweep, must
+                 fail it).
                  factor, assemble_factor, apply_bwd and apply_fwd also
                  per instance and output block, and their planted faults
                  (a row dropped, a chunk staged one stage late, the P, p
@@ -40,16 +45,18 @@ Phases (any failure exits non-zero before the result lines):
                  those checks.  One indefinite instance among 37 must come
                  out NaN with its neighbours finite (Riccati 2x2 pivot,
                  at the main shapes and at nz=9, ns=2, N=41);
-                 two indefinite dense KKT matrices must come out NaN from
-                 their first failing pivot on and finite before it, which
-                 the factor's planted pivot clamp must fail; one instance
+                 three indefinite dense KKT matrices (at n=84 and 163)
+                 must come out NaN from their first failing pivot on and
+                 finite before it, which the factor's planted pivot clamp
+                 must fail; one instance
                  whose Huinv holds a NaN must come out NaN in apply_bwd and
                  apply_fwd with its neighbours finite.  Kernel times (CUDA
                  events around a CUDA graph of 20 launches, so host gaps
                  do not count), plain and library times, and each
                  kernel's bound.
   2b. entry  -- on the card, solve_stage_qp refuses an f64 and an nx=6
-                 StageQP and solve_qp an f64 dense QP under chol="auto",
+                 StageQP and solve_qp an f64 dense QP, an f32 one at
+                 n=193 and the f64 planner's first QP under chol="auto",
                  each with a ValueError naming the route that runs it and
                  with every launch count still 0; a StageQP carried across
                  by interop.stage_qp with its defaults lands in f32 and
@@ -99,12 +106,27 @@ Phases (any failure exits non-zero before the result lines):
                  ``F32_PRODUCTION`` (K1 at ns=2, K4 once a tick), MS
                  kinematic/dense/``F32_ACCURATE`` (K5-K7, the pre-step
                  ellipse rows), trapezoidal dynamic/dense/``F32_ACCURATE``
-                 (the non-aligned condensed QP, n=84) and trapezoidal
-                 kinematic/Riccati/``F32_PRODUCTION`` (nz=7, N=41): as
-                 phase 4, with launches equal to the schedule (three SQP
-                 subproblems a tick, the first cold) and the tolerance
-                 from the measured f32-to-f64 divergence of these laps
+                 (the non-aligned condensed QP, n=84), trapezoidal
+                 kinematic/Riccati/``F32_PRODUCTION`` (nz=7, N=41) and
+                 Hermite-Simpson kinematic/dense/``F32_ACCURATE`` (2N+1
+                 points, n=163: K6/K7's six-slot build): as phase 4, with
+                 launches equal to the schedule (three SQP subproblems a
+                 tick, the first cold) and the tolerance from the
+                 measured f32-to-f64 divergence of these laps
                  (``NMPC_STATE_TOL``).
+  7. planner and raceline -- run right after phase 2b, so that the CPU's
+                 laps on its plan run beside phases 3-6:
+                 ``minimum_time_planner_dynamic`` in f64 on the card
+                 (``chol="lapack"``, no kernel launched) at 160 nodes,
+                 its lap time held to the JAX package's f64 CPU plan
+                 (``PLAN_T64``), and at the JAX defaults (500 nodes, 40
+                 SQP iterations), wall times printed; then, after phase
+                 6, ``sim.simulate`` with ``reference="raceline"`` on the
+                 500-node plan at B=1024 laps of 20 ticks, dynamic/
+                 Riccati/``F32_PRODUCTION``, as phase 4 (launches equal
+                 to the schedule, K4 0, no host sync, instances 0-3
+                 against the CPU's f32 laps on the same plan within
+                 ``RACELINE_STATE_TOL``).
 
 The last three lines of standard output are the card's name and power
 limit, one JSON object with the kernels, and
@@ -119,6 +141,7 @@ import os
 import subprocess
 import sys
 import time
+from typing import NamedTuple
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 B_MAIN, N_MAIN, NX, NU, R, NS = 1024, 40, 7, 2, 20, 4
@@ -148,10 +171,13 @@ SEED = 0
 KERNEL_RTOL = 1e-4
 # dense kernels: widths of the dynamic (nx=7, n=84) and kinematic (nx=5,
 # n=81) LTV QPs, which the kinematic MS-NMPC and the dynamic trapezoidal
-# QP share, and of the dynamic MS-NMPC (n=82) and kinematic trapezoidal
-# (n=83) QPs; DENSE_KEYS names each width's times in the results
-N_DENSE = (84, 81, 82, 83)
-DENSE_KEYS = {84: "", 81: "_kin", 82: "_n82", 83: "_n83"}
+# QP share, of the dynamic MS-NMPC (n=82) and kinematic trapezoidal
+# (n=83) QPs, of the Hermite-Simpson QP (n = (2N+1) nu + 1 = 163: the
+# six-slot build, above 48 KB of shared memory) and the kernels' widest
+# (n=192); DENSE_KEYS names each width's times in the results
+N_DENSE = (84, 81, 82, 83, 163, 192)
+DENSE_KEYS = {84: "", 81: "_kin", 82: "_n82", 83: "_n83", 163: "_hs",
+              192: "_n192"}
 # published peaks of one H100 SXM (NVIDIA data sheet, 700 W): HBM bytes/s
 # and float32 operations/s outside the tensor cores
 PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
@@ -171,8 +197,48 @@ ACC_GUARD = {"F32_PRODUCTION": (1e-1, 1e-2)}
 # first projection is warm-started at the initial guess's s = 0.0125 m,
 # so the offsets stay small.
 B_SIM, SIM_TICKS, SIM_CHECK = 1024, 20, 4
-SIM_CONFIGS = (("kinematic", "dense", "F32_ACCURATE"),
-               ("dynamic", "riccati", "F32_PRODUCTION"))
+
+
+class Loop(NamedTuple):
+    """One closed-loop configuration of phases 4, 6 and 7."""
+
+    mode: str
+    model: str
+    backend: str
+    preset: str
+    transcription: str = "trapezoidal"
+    reference: str = "speed_ramp"
+
+    @property
+    def key(self) -> str:
+        """Its name in the tolerance tables: the model for LTV, "mode/model"
+        for NMPC ("/hs" for Hermite-Simpson), "raceline/model"."""
+        if self.reference == "raceline":
+            return f"raceline/{self.model}"
+        if self.mode == "ltv":
+            return self.model
+        return f"{self.mode}/{self.model}" + (
+            "/hs" if self.transcription == "hs" else "")
+
+    @property
+    def tag(self) -> str:
+        return (f"{'' if self.mode == 'ltv' else self.mode + ' '}"
+                f"{'hs ' if self.transcription == 'hs' else ''}"
+                f"{'raceline ' if self.reference == 'raceline' else ''}"
+                f"{self.model}/{self.backend}/{self.preset}")
+
+    def sim_config(self, ticks, mpc):
+        from fsae_mpc_tpu_torch.ops import ipm
+        from fsae_mpc_tpu_torch.sim import SimConfig
+        return SimConfig(model=self.model, mode=self.mode,
+                         qp_backend=self.backend, n_ticks=ticks, mpc=mpc,
+                         ipm=getattr(ipm, self.preset),
+                         transcription=self.transcription,
+                         reference=self.reference)
+
+
+SIM_CONFIGS = (Loop("ltv", "kinematic", "dense", "F32_ACCURATE"),
+               Loop("ltv", "dynamic", "riccati", "F32_PRODUCTION"))
 SIM_OFFSETS = (0.3, 0.3, 0.05)
 # instances 0..SIM_CHECK-1 on the card against the same four laps run by
 # the port on the CPU in f32 (the plain versions): max |x_card - x_cpu|
@@ -192,14 +258,15 @@ SIM_F32_DIVERGENCE = {
 SIM_STATE_TOL = {k: tuple(5.0 * v for v in d)
                  for k, d in SIM_F32_DIVERGENCE.items()}
 # phase 6, the NMPC closed loop: B_SIM laps of NMPC_TICKS ticks in each
-# (mode, model, backend, preset) of NMPC_CONFIGS on fsg2019 with MPC_F32,
-# from phase 4's starts, three SQP iterations a tick.  Together they run
-# every kernel and both new assembly paths: K1 at ns=2 and K4 once a tick
-# (the cold first subproblem; no warm start crosses ticks), the dense
-# pre-step ellipse rows (non-aligned, n = 81), the trapezoidal condensed QP
-# (non-aligned, NC = N+1, n = 84) and the augmented-state stage QP
-# (nz = 7, N+1 = 41 stages).  F32_ACCURATE is refused by the Riccati
-# solver (scale_kkt, comp_resid), hence F32_PRODUCTION there.
+# configuration of NMPC_CONFIGS on fsg2019 with MPC_F32, from phase 4's
+# starts, three SQP iterations a tick.  Together they run every kernel and
+# the NMPC assembly paths: K1 at ns=2 and K4 once a tick (the cold first
+# subproblem; no warm start crosses ticks), the dense pre-step ellipse
+# rows (non-aligned, n = 81), the trapezoidal condensed QP (non-aligned,
+# NC = N+1, n = 84), the augmented-state stage QP (nz = 7, N+1 = 41
+# stages) and Hermite-Simpson's condensed QP (2N+1 points, n = 163: K6
+# and K7 in their six-slot build).  F32_ACCURATE is refused by the
+# Riccati solver (scale_kkt, comp_resid), hence F32_PRODUCTION there.
 NMPC_TICKS = 10
 # instances 0..SIM_CHECK-1 against the same laps run by the port on the
 # CPU in f32, as phase 4: NMPC_F32_DIVERGENCE is the f32-against-f64
@@ -218,13 +285,16 @@ NMPC_F32_DIVERGENCE = {
     "c-nmpc/dynamic": (1.98e-06, 1.66e-05, 1.81e-05, 3.08e-05, 8.75e-05,
                        1.40e-04, 7.16e-05),
     "c-nmpc/kinematic": (4.45e-07, 1.45e-06, 1.77e-06, 3.33e-06, 1.24e-05,
-                         2.14e-05, 8.46e-06)}
+                         2.14e-05, 8.46e-06),
+    "c-nmpc/kinematic/hs": (1.79e-06, 6.64e-06, 7.37e-06, 7.61e-06,
+                            2.83e-05, 4.96e-05, 2.76e-05)}
 NMPC_STATE_TOL = {k: tuple(5.0 * v for v in (max(d[:2]),) * 2 + d[2:])
                   for k, d in NMPC_F32_DIVERGENCE.items()}
-NMPC_CONFIGS = (("ms-nmpc", "dynamic", "riccati", "F32_PRODUCTION"),
-                ("ms-nmpc", "kinematic", "dense", "F32_ACCURATE"),
-                ("c-nmpc", "dynamic", "dense", "F32_ACCURATE"),
-                ("c-nmpc", "kinematic", "riccati", "F32_PRODUCTION"))
+NMPC_CONFIGS = (Loop("ms-nmpc", "dynamic", "riccati", "F32_PRODUCTION"),
+                Loop("ms-nmpc", "kinematic", "dense", "F32_ACCURATE"),
+                Loop("c-nmpc", "dynamic", "dense", "F32_ACCURATE"),
+                Loop("c-nmpc", "kinematic", "riccati", "F32_PRODUCTION"),
+                Loop("c-nmpc", "kinematic", "dense", "F32_ACCURATE", "hs"))
 # phase 5, one timed lap: B=1, dynamic / dense / MPC_F32 / F32_ACCURATE on
 # fsg2019 from the origin at rest, at most LAP_TICKS ticks, stopping when
 # the lap is done (the configuration of the JAX package's
@@ -235,6 +305,44 @@ NMPC_CONFIGS = (("ms-nmpc", "dynamic", "riccati", "F32_PRODUCTION"),
 LAP_TICKS = 700
 LAP_T64 = 21.25
 LAP_TIME_TOL, LAP_TRACK_VIOLATION = 0.20, 0.02
+# phase 7, the minimum-time planner and the raceline loop.  (1) The dynamic
+# planner on fsg2019 in f64 on the card, its QPs factored by PyTorch's
+# Cholesky (IpmOptions(chol="lapack"); the hand kernels take f32 and
+# n <= 192): at the JAX package's defaults (PLAN_NODES = 500 nodes, 40 SQP
+# iterations, friction_util 1.0; QPs of n = 4,002), the plan the raceline
+# loop tracks, and at PLAN_REF_NODES = 160 nodes (the fewest at which the
+# plan converges: at 96 its defect stays ~1.3 and its slacks ~0.8), held
+# to PLAN_T64: the JAX package's f64 plan's lap time at 160 nodes on a CPU
+# (tools/sim_reference.py plan64: the card's machine has no JAX, and a
+# 500-node JAX plan takes ~3 h of CPU).  Its QPs stop at max_iters short
+# of their tolerance, so the last digits of a summation order move the
+# planner's path and the local optimum its 40 iterations end in: the
+# port's f64 CPU plans with 4 and 1 intra-op threads end at 31.0093 and
+# 33.1628 s.  PLAN_CPU_GAP is the larger gap between those and the JAX
+# plan, PLAN_TIME_TOL 5x that; PLAN_DEFECT_MAX is 5x the largest defect
+# of the three (0.0453, 0.0253, 0.0139), so that a plan that has not
+# converged fails (at 96 nodes the defect stays ~1.3).  (2)
+# ``simulate`` tracking that plan (reference="raceline") at B_SIM laps of
+# RACELINE_TICKS ticks, dynamic/Riccati/F32_PRODUCTION from phase 4's
+# starts, as phase 4: launches equal to the schedule (K4 0), no host
+# synchronisation, instances 0-3 against the CPU's f32 laps on the same
+# plan within 5x the f32-to-f64 divergence of those laps, x and y sharing
+# the larger of their two as in phase 6 (tools/sim_reference.py
+# divergence --raceline PLAN.npz --ticks 20, on the card's 500-node plan
+# of a chip_smoke run, PLAN_OUT, one CPU thread, x86-64).
+PLAN_NODES, PLAN_ITERS, PLAN_REF_NODES = 500, 40, 160
+PLAN_T64 = 31.8096
+PLAN_CPU_GAP = 1.3532
+PLAN_TIME_TOL = 5.0 * PLAN_CPU_GAP
+PLAN_DEFECT_MAX = 5.0 * 0.0453
+RACELINE_CONFIG = Loop("ltv", "dynamic", "riccati", "F32_PRODUCTION",
+                       reference="raceline")
+RACELINE_TICKS = 20
+RACELINE_F32_DIVERGENCE = {
+    "raceline/dynamic": (5.38e-04, 2.09e-03, 1.50e-03, 1.88e-03, 2.42e-03,
+                         6.24e-03, 1.40e-03)}
+RACELINE_STATE_TOL = {k: tuple(5.0 * v for v in (max(d[:2]),) * 2 + d[2:])
+                      for k, d in RACELINE_F32_DIVERGENCE.items()}
 # the faults compiled into riccati.cu under -DRICCATI_PLANT=n, each of
 # which the assemble_factor (1, 2), apply_fwd (3, 4), apply_bwd (5, 6) or
 # factor (7, 8) checks must fail
@@ -249,14 +357,21 @@ PLANTS = {1: "assemble_factor drops row 3 of stage 17",
 PLANT_KERNEL = {1: "assemble_factor", 2: "assemble_factor", 3: "apply_fwd",
                 4: "apply_fwd", 5: "apply_bwd", 6: "apply_bwd", 7: "factor",
                 8: "factor"}
-# the faults compiled into chol.cu under -DCHOL_PLANT=n: (1, 3, 4) must fail
-# the entrywise check of their kernel, (2) the NaN-poison check
+# the faults compiled into chol.cu under -DCHOL_PLANT=n: (1, 3, 4, 5, 6) must
+# fail the entrywise check of their kernel, (2) the NaN-poison check; 5 and
+# 6 exist only in the six-slot build, so only from n = CHOL_PLANT_MIN_N on
 CHOL_PLANTS = {1: "chol_factor skips one trailing-update tile in panel 2",
                2: "chol_factor clamps a non-positive pivot to 1e-6",
                3: "chol_solve skips column 40's update in the forward sweep",
-               4: "chol_solve's back sweep reads column j in place of row j"}
+               4: "chol_solve's back sweep reads column j in place of row j",
+               5: "chol_factor's panel leaves its sixth slot unwritten",
+               6: "chol_solve's back sweep drops rows 160 on from the "
+                  "earlier panels"}
 CHOL_PLANT_KERNEL = {1: "chol_factor", 2: "chol_factor", 3: "chol_solve",
-                     4: "chol_solve"}
+                     4: "chol_solve", 5: "chol_factor", 6: "chol_solve"}
+CHOL_PLANT_MIN_N = {5: 161, 6: 161}
+# the dense NaN-poison case's indefinite instances (of 37)
+CHOL_POISONED = (5, 9, 13)
 
 
 def sim_scenarios(Bsz, seed=SEED):
@@ -722,14 +837,16 @@ def chol_planted_solve(lib, L, b):
     return x
 
 
-def chol_poison_inputs(device):
-    """37 SPD matrices (n=84) of which two are indefinite: instance 5 from
-    its first pivot on (K - 1e8 I), instance 9 from pivot 40."""
+def chol_poison_inputs(device, n=N_DENSE[0]):
+    """37 SPD matrices (n x n) of which three are indefinite
+    (``CHOL_POISONED``): instance 5 from its first pivot on (K - 1e8 I),
+    instance 9 from pivot 40, instance 13 from pivot n - 2 (in the last
+    panel; at n = 163 in the six-slot build's sixth slot)."""
     import torch
-    n = N_DENSE[0]
     K, b = spd_inputs(37, n, SEED + 99, device)
     K[5] -= 1e8 * torch.eye(n, device=device)
     K[9, 40, 40] = -1e9
+    K[13, n - 2, n - 2] = -1e9
     return K, b
 
 
@@ -806,12 +923,13 @@ def dense_kernel_phase(device, card, chol_plants):
             x_k = kc.solve_cuda(L_p, b)
             x_p = kc.solve_ref(L_p, b)
             x_kk = kc.solve_cuda(L_k, b)
-            planted = {n: chol_planted(chol_plants[n], K)
-                       for n, k in CHOL_PLANT_KERNEL.items()
-                       if k == "chol_factor" and n != 2}
-            planted_x = {n: chol_planted_solve(chol_plants[n], L_p, b)
-                         for n, k in CHOL_PLANT_KERNEL.items()
-                         if k == "chol_solve"}
+            plants = [p for p in CHOL_PLANTS
+                      if n >= CHOL_PLANT_MIN_N.get(p, 0)]
+            planted = {p: chol_planted(chol_plants[p], K) for p in plants
+                       if CHOL_PLANT_KERNEL[p] == "chol_factor" and p != 2}
+            planted_x = {p: chol_planted_solve(chol_plants[p], L_p, b)
+                         for p in plants
+                         if CHOL_PLANT_KERNEL[p] == "chol_solve"}
             torch.cuda.synchronize()
             compare("chol_factor", (L_k,), (L_p,), results, tag)
             compare("chol_solve", (x_k,), (x_p,), results, tag)
@@ -849,21 +967,25 @@ def dense_kernel_phase(device, card, chol_plants):
                     "library_ms" + key: lms, "bound_ms" + key: bms,
                     "bound_by" + key: by})
 
-    # NaN poison: instances 5 and 9 of 37 are indefinite; planted fault 2
-    # must fail the same check
-    K, b = chol_poison_inputs(device)
-    L = kc.factor_cuda(K)
-    exact, clean = chol_poisoned(K, L, kc.solve_cuda(L, b))
-    log(f"kernel {'chol_factor/solve':16s} [NaN poison] instances 5, 9 NaN "
-        f"from their first failing pivot on: {exact}, other 35 finite: "
-        f"{clean}")
-    check(exact and clean, "chol: NaN poison not isolated")
-    L = chol_planted(chol_plants[2], K)
-    exact, clean = chol_poisoned(K, L, kc.solve_cuda(L, b))
-    log(f"kernel {'chol planted':16s} [NaN poison] 2 ({CHOL_PLANTS[2]}): "
-        f"{'fails' if not (exact and clean) else 'PASSES'} the check")
-    check(not (exact and clean), "chol: planted fault 2 passes the NaN-poison"
-          " check")
+    # NaN poison: instances CHOL_POISONED of 37 are indefinite, at the main
+    # width and at Hermite-Simpson's; planted fault 2 must fail the same
+    # check
+    for n in (N_DENSE[0], 163):
+        K, b = chol_poison_inputs(device, n)
+        L = kc.factor_cuda(K)
+        exact, clean = chol_poisoned(K, L, kc.solve_cuda(L, b))
+        log(f"kernel {'chol_factor/solve':16s} [NaN poison, n={n}] "
+            f"instances {CHOL_POISONED} NaN from their first failing pivot "
+            f"on: {exact}, the other {37 - len(CHOL_POISONED)} finite: "
+            f"{clean}")
+        check(exact and clean, f"chol n={n}: NaN poison not isolated")
+        L = chol_planted(chol_plants[2], K)
+        exact, clean = chol_poisoned(K, L, kc.solve_cuda(L, b))
+        log(f"kernel {'chol planted':16s} [NaN poison, n={n}] 2 "
+            f"({CHOL_PLANTS[2]}): "
+            f"{'fails' if not (exact and clean) else 'PASSES'} the check")
+        check(not (exact and clean), f"chol n={n}: planted fault 2 passes "
+              "the NaN-poison check")
     return results
 
 
@@ -876,7 +998,10 @@ def entry_phase(model, device):
     """On the card, ``solve_stage_qp`` and ``solve_qp`` refuse what their
     kernels cannot run before any launch (every launch count stays 0), with
     a ``ValueError`` that names the route that runs it: an f64 and an nx=6
-    StageQP, an f64 dense QP under ``chol="auto"``.  And a StageQP carried
+    StageQP, an f64 dense QP and an f32 one wider than the kernels take
+    (n = MAX_N + 1) under ``chol="auto"``, and the f64 planner's first QP
+    under the default ``IpmOptions`` (the planner does not switch route on
+    its own).  And a StageQP carried
     across from numpy (as the JAX package hands it over, here in f64) with
     ``interop.stage_qp``'s defaults lands on the card in f32 and solves,
     equal to the same data solved directly."""
@@ -885,8 +1010,15 @@ def entry_phase(model, device):
     from fsae_mpc_tpu_torch import interop
     from fsae_mpc_tpu_torch.mpc import ltv
     from fsae_mpc_tpu_torch.ops import ipm, riccati
+    from fsae_mpc_tpu_torch.ops.kernels import chol as kc
+    from fsae_mpc_tpu_torch.planner import minimum_time_planner_dynamic
 
     track, params, mpc = model
+    wide = kc.MAX_N + 1
+    eye = torch.eye(wide, device=device).expand(2, wide, wide).contiguous()
+    zero = torch.zeros((2, wide), device=device)
+    wide_qp = (eye, zero, torch.ones((2, 1, wide), device=device), zero - 1,
+               zero + 1, zero[:, :1] - 1, zero[:, :1] + 1)
     xc, xl, ul = initial_batch(8, mpc, torch.float32, device)
     x_ref = reference(xc, mpc)
     sqp = ltv.build_stage_qp_dynamic(xc, x_ref, track, params, mpc, xl,
@@ -909,6 +1041,12 @@ def entry_phase(model, device):
         'solve_qp, f64 dense QP, chol="auto"': (
             lambda: ipm.solve_qp(*[t.double() for t in dqp[:7]],
                                  ipm.F32_OPTS), 'chol="lapack"'),
+        f'solve_qp, f32 dense QP at n={wide}, chol="auto"': (
+            lambda: ipm.solve_qp(*wide_qp, ipm.F32_OPTS), 'chol="lapack"'),
+        'minimum_time_planner_dynamic, f64, default IpmOptions': (
+            lambda: minimum_time_planner_dynamic(
+                track.to(dtype=torch.float64), params, n_nodes=16, iters=1),
+            'chol="lapack"'),
     }
     torch.cuda.synchronize()
     for what, (call, route) in refusals.items():
@@ -1337,23 +1475,25 @@ def loop_schedule(mode, backend, opts, ticks, sqp_iters):
     return exp, iters
 
 
-# per NMPC (mode, model): the phase 2 keys of its Riccati shapes and its
-# dense QP's width
-NMPC_SHAPES = {("ms-nmpc", "dynamic"): ("_msdyn", 82),
-               ("ms-nmpc", "kinematic"): ("_kin", 81),
-               ("c-nmpc", "dynamic"): ("_trdyn", 84),
-               ("c-nmpc", "kinematic"): ("_trkin", 83)}
+# per NMPC loop (its ``Loop.key``): the phase 2 keys of its Riccati shapes
+# and its dense QP's width
+NMPC_SHAPES = {"ms-nmpc/dynamic": ("_msdyn", 82),
+               "ms-nmpc/kinematic": ("_kin", 81),
+               "c-nmpc/dynamic": ("_trdyn", 84),
+               "c-nmpc/kinematic": ("_trkin", 83),
+               "c-nmpc/kinematic/hs": (None, 163)}
 
 
-def loop_kernel_ms(mode, name, backend, kres, opts, iters, sqp_iters):
+def loop_kernel_ms(loop, kres, opts, iters, sqp_iters):
     """The hand kernels' share of a closed-loop tick: per-launch times
     (phase 2, at the tick's shapes) times launches a tick."""
+    mode, name, backend = loop.mode, loop.model, loop.backend
     per_solve = 2 if opts.scale_kkt else 1
     if mode == "ltv":
         return kernel_ms_per_tick(backend, kres, iters,
                                   "_kin" if name == "kinematic" else "",
                                   per_solve)
-    rkey, n = NMPC_SHAPES[mode, name]
+    rkey, n = NMPC_SHAPES[loop.key]
     if backend == "riccati":
         return (sqp_iters * kernel_ms_per_tick(backend, kres, iters, rkey)
                 + kres["factor"]["ms" + rkey])
@@ -1366,51 +1506,52 @@ def loop_kernel_ms(mode, name, backend, kres, opts, iters, sqp_iters):
         chol + per_solve * kres["chol_solve"]["ms" + dkey])) + chol
 
 
-def cpu_reference_laps(mode, name, backend, preset, ticks):
+def cpu_reference_laps(loop, ticks, plan=None):
     """The laps of instances 0..SIM_CHECK-1 of ``sim_scenarios`` by the
     port on the CPU in f32 (the plain versions), one thread: the plant
-    states (SIM_CHECK, ticks, 7) as numpy.  Run in a worker process (see
-    :func:`closed_loop_phase`)."""
+    states (SIM_CHECK, ticks, 7) as numpy.  ``plan``: the raceline plan's
+    fields as numpy (f64), for ``reference="raceline"``.  Run in a worker
+    process (see :func:`closed_loop_phase`)."""
     import torch
     sys.path.insert(0, ROOT)
+    from fsae_mpc_tpu_torch import interop
     from fsae_mpc_tpu_torch.config import MPC_F32, VehicleParams
-    from fsae_mpc_tpu_torch.ops import ipm
-    from fsae_mpc_tpu_torch.sim import SimConfig, simulate
+    from fsae_mpc_tpu_torch.sim import simulate
     from fsae_mpc_tpu_torch.track import load_track
 
     torch.set_num_threads(1)
     track, _ = load_track(os.path.join(ROOT, "data", "fsg2019.csv"),
                           dtype=torch.float32, device="cpu")
-    cfg = SimConfig(model=name, mode=mode, qp_backend=backend,
-                    n_ticks=ticks, mpc=MPC_F32, ipm=getattr(ipm, preset))
     t0 = time.perf_counter()
-    out = simulate(track, VehicleParams(), cfg, torch.tensor(
-        sim_scenarios(B_SIM)[:SIM_CHECK], dtype=torch.float32))
+    out = simulate(track, VehicleParams(), loop.sim_config(ticks, MPC_F32),
+                   torch.tensor(sim_scenarios(B_SIM)[:SIM_CHECK],
+                                dtype=torch.float32),
+                   plan=None if plan is None else interop.planner_result(
+                       plan, device="cpu"))
     return out.x_history.numpy(), time.perf_counter() - t0
 
 
-def start_cpu_references(pool, configs, ticks):
+def start_cpu_references(pool, configs, ticks, plan=None):
     """Start :func:`cpu_reference_laps` of each config on ``pool`` (a
     ``multiprocessing`` pool): the CPU's f32 laps run beside the card's
     phases."""
-    return {c: pool.apply_async(cpu_reference_laps, (*c, ticks))
+    return {c: pool.apply_async(cpu_reference_laps, (c, ticks, plan))
             for c in configs}
 
 
 def closed_loop_phase(label, configs, ticks, tols, model, device, card,
-                      kres, cpu_refs=None):
-    """``sim.simulate`` at B_SIM laps for ``ticks`` ticks in each (mode,
-    model, backend, preset) of ``configs``: launch counts equal to the
-    schedule (:func:`loop_schedule`), no host synchronisation, every trace
-    finite, instances 0..SIM_CHECK-1 against the port's own f32 run of the
-    same laps on the CPU within ``tols`` (keyed by model for LTV, by
-    "mode/model" for NMPC): ``cpu_refs`` maps a config to the pending
-    result of those laps from :func:`start_cpu_references`, else they run
-    here.
-    Returns the launch counts of each run."""
+                      kres, cpu_refs=None, plan=None):
+    """``sim.simulate`` at B_SIM laps for ``ticks`` ticks in each
+    :class:`Loop` of ``configs``: launch counts equal to the schedule
+    (:func:`loop_schedule`), no host synchronisation, every trace finite,
+    instances 0..SIM_CHECK-1 against the port's own f32 run of the same
+    laps on the CPU within ``tols`` (keyed by ``Loop.key``): ``cpu_refs``
+    maps a config to the pending result of those laps from
+    :func:`start_cpu_references`, else they run here.  ``plan``: the plan
+    a raceline loop tracks.  Returns the launch counts of each run."""
     import torch
-    from fsae_mpc_tpu_torch.ops import ipm
-    from fsae_mpc_tpu_torch.sim import SimConfig, simulate
+    from fsae_mpc_tpu_torch import interop
+    from fsae_mpc_tpu_torch.sim import simulate
     from fsae_mpc_tpu_torch.sim.closed_loop import CONV_THRESHOLDS
 
     track, params, mpc = model
@@ -1418,12 +1559,11 @@ def closed_loop_phase(label, configs, ticks, tols, model, device, card,
     x_t = torch.tensor(x_init, dtype=torch.float32, device=device)
     track_cpu = track.to("cpu")
     counts = []
-    for mode, name, backend, preset in configs:
-        opts = getattr(ipm, preset)
-        tag = (f"{name}/{backend}/{preset}" if mode == "ltv"
-               else f"{mode} {name}/{backend}/{preset}")
-        cfg = SimConfig(model=name, mode=mode, qp_backend=backend,
-                        n_ticks=ticks, mpc=mpc, ipm=opts)
+    for loop in configs:
+        mode, name, backend = loop.mode, loop.model, loop.backend
+        tag = loop.tag
+        cfg = loop.sim_config(ticks, mpc)
+        opts = cfg.ipm
         exp, iters = loop_schedule(mode, backend, opts, ticks,
                                    cfg.sqp_iters)
         start = torch.cuda.Event(enable_timing=True)
@@ -1434,7 +1574,7 @@ def closed_loop_phase(label, configs, ticks, tols, model, device, card,
 
         def run():
             start.record()
-            out = simulate(track, params, cfg, x_t)
+            out = simulate(track, params, cfg, x_t, plan=plan)
             end.record()
             return out
 
@@ -1460,8 +1600,7 @@ def closed_loop_phase(label, configs, ticks, tols, model, device, card,
             f"{sorted(set(syncs))[:8]}")
         check(not syncs, f"{label} {tag}: simulate synchronises with the "
               "host")
-        k_ms = loop_kernel_ms(mode, name, backend, kres, opts, iters,
-                              cfg.sqp_iters)
+        k_ms = loop_kernel_ms(loop, kres, opts, iters, cfg.sqp_iters)
         log(f"{label} {tag}: hand kernels ~{k_ms:.2f} ms of the "
             f"{tick_ms:.2f} ms sim tick ({100 * k_ms / tick_ms:.1f}%; "
             "per-launch times x launches)")
@@ -1479,21 +1618,23 @@ def closed_loop_phase(label, configs, ticks, tols, model, device, card,
             f" (bar {CONV_THRESHOLDS[backend]}), active share "
             f"{float(act.mean()):.3f}")
         sim_breakdown(f"{label} {tag}", cfg, model, out.x_history[:, -1],
-                      tick_ms, card)
+                      tick_ms, card, plan)
         # the same laps on the CPU in f32, through the plain versions
         if cpu_refs is not None:
             t0 = time.perf_counter()
-            ref_x, cpu_s = cpu_refs[mode, name, backend, preset].get()
+            ref_x, cpu_s = cpu_refs[loop].get()
             ref_x = torch.from_numpy(ref_x)
             wait = f"; waited {time.perf_counter() - t0:.1f} s for it"
         else:
             t0 = time.perf_counter()
             ref_x = simulate(track_cpu, params, cfg, torch.tensor(
-                x_init[:SIM_CHECK], dtype=torch.float32)).x_history
+                x_init[:SIM_CHECK], dtype=torch.float32),
+                plan=None if plan is None else interop.planner_result(
+                    interop.to_numpy(plan), device="cpu")).x_history
             cpu_s, wait = time.perf_counter() - t0, ""
         d = (out.x_history[:SIM_CHECK].cpu().double()
              - ref_x.double()).abs().amax((0, 1))
-        tol = tols[name if mode == "ltv" else f"{mode}/{name}"]
+        tol = tols[loop.key]
         log(f"{label} {tag}: instances 0-{SIM_CHECK - 1} card vs CPU f32, "
             f"max |dx| per state {[f'{v:.2e}' for v in d.tolist()]}, tol "
             f"{[f'{v:.2e}' for v in tol]} (CPU run {cpu_s:.1f} s{wait})")
@@ -1504,7 +1645,7 @@ def closed_loop_phase(label, configs, ticks, tols, model, device, card,
     return counts
 
 
-def sim_breakdown(tag, cfg, model, x, tick_ms, card):
+def sim_breakdown(tag, cfg, model, x, tick_ms, card, plan=None):
     """Where a sim tick's time goes: each of its parts timed alone at the
     batch's last plant states (CUDA events, 3 calls after one more): the
     projection, the reference, the MPC tick (from the first tick's guess;
@@ -1526,13 +1667,17 @@ def sim_breakdown(tag, cfg, model, x, tick_ms, card):
                          -1)
     else:
         x0 = torch.stack([s, n, mu, x[:, 3], x[:, 4], x[:, 5], x[:, 6]], -1)
-    x_ref = cl._reference(cfg, x0, x[:, 3])
+    if cfg.reference == "raceline":
+        reference = lambda: cl._raceline_reference(plan, track, cfg, x0)
+    else:
+        reference = lambda: cl._reference(cfg, x0, x[:, 3])
+    x_ref = reference()
     solver = cl._solver(track, params, cfg)
     pids = (torch.zeros_like(x[:, 0]), torch.zeros_like(x[:, 0]))
     parts = {
         "projection": lambda: transforms.cartesian_to_curvilinear(
             x[:, 0], x[:, 1], x[:, 2], track, x_opt[:, 0, 0]),
-        "reference": lambda: cl._reference(cfg, x0, x[:, 3]),
+        "reference": reference,
         "MPC tick": lambda: solver(x0, x_ref, x_opt, u_opt, warm),
         "plant substeps": lambda: cl.plant_substeps(
             x, x[:, 3] + 1.0, x[:, 6], (pids, pids), params, mpc.dt,
@@ -1594,10 +1739,70 @@ def lap_phase(model, card):
     return {k: v for k, v in got.items() if v}
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the minimum-time planner and the raceline loop
+# ---------------------------------------------------------------------------
+
+
+def planner_phase(device, card):
+    """``minimum_time_planner_dynamic`` on fsg2019 in f64 on the card
+    (``chol="lapack"``) at PLAN_REF_NODES and PLAN_NODES nodes: no kernel
+    launched, every output finite, the first plan's lap time within
+    PLAN_TIME_TOL of the JAX package's f64 plan and its defect at most
+    PLAN_DEFECT_MAX.  Returns the second plan
+    (on the card, f64) and its fields as numpy (to ``PLAN_OUT`` when that
+    environment variable names a file)."""
+    import numpy as np
+    import torch
+    from fsae_mpc_tpu_torch import interop
+    from fsae_mpc_tpu_torch.config import VehicleParams
+    from fsae_mpc_tpu_torch.ops import ipm
+    from fsae_mpc_tpu_torch.planner import minimum_time_planner_dynamic
+    from fsae_mpc_tpu_torch.track import load_track
+
+    track64, _ = load_track(os.path.join(ROOT, "data", "fsg2019.csv"),
+                            dtype=torch.float64, device=device)
+    for nodes in (PLAN_REF_NODES, PLAN_NODES):
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plan = minimum_time_planner_dynamic(
+            track64, VehicleParams(), n_nodes=nodes, iters=PLAN_ITERS,
+            opts=ipm.IpmOptions(chol="lapack"))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = launches()
+        fields = interop.to_numpy(plan)
+        lap = float(fields["lap_time"])
+        held = (f" (JAX f64 on a CPU {PLAN_T64} s, tol {PLAN_TIME_TOL:.4f};"
+                f" defect bound {PLAN_DEFECT_MAX:.4f})"
+                if nodes == PLAN_REF_NODES else "")
+        log(f"plan dynamic f64 on the card, {nodes} nodes, {PLAN_ITERS} SQP "
+            f"iterations: {wall:.1f} s wall (host clock, synchronised), lap "
+            f"time {lap:.4f} s{held}, defect "
+            f"{float(fields['defect_norm']):.3e}, slacks "
+            f"{fields['slack'].tolist()}, merit {float(fields['merit']):.4f}"
+            f", mean x_d {float(fields['y_opt'][:, 2].mean()):.3f} m/s, |n| "
+            f"max {float(np.abs(fields['y_opt'][:, 0]).max()):.3f} m; "
+            f"launches {sum(got.values())}  ({card})")
+        check(not any(got.values()), f"plan {nodes}: kernels launched {got}")
+        check(all(bool(np.isfinite(v).all()) for v in fields.values()),
+              f"plan {nodes}: non-finite outputs")
+        if nodes == PLAN_REF_NODES:
+            check(abs(lap - PLAN_T64) <= PLAN_TIME_TOL,
+                  f"plan: lap time {lap:.4f} s, JAX f64 {PLAN_T64} s")
+            check(float(fields["defect_norm"]) <= PLAN_DEFECT_MAX,
+                  f"plan: defect {float(fields['defect_norm']):.3e} > "
+                  f"{PLAN_DEFECT_MAX:.3e}")
+    if os.environ.get("PLAN_OUT"):
+        np.savez(os.environ["PLAN_OUT"], **fields)
+    return plan, fields
+
+
 def kernel_line(kres, paths):
     """The ``kernels`` JSON object: every kernel with its launches on the
-    paths' runs (phases 3, 4 and 5, summed), its parity and its times (at
-    the main path's shapes) beside its bound."""
+    paths' runs (phases 3-7, summed), its parity and its times (at the
+    main path's shapes) beside its bound."""
     out = []
     for source, mod in kernel_modules().items():
         for name, k in mod.KERNELS.items():
@@ -1662,11 +1867,16 @@ def main() -> int:
                               dtype=torch.float32, device=device)
         model = (track, VehicleParams(), MPC_F32)
         entry_phase(model, device)
-        # phase 6's CPU laps (minutes on one core each) run in worker
-        # processes beside phases 3-5 on the card
+        # phase 7's plan first: the CPU's laps on it then run beside
+        # phases 3-6
+        plan, plan_np = planner_phase(device, card)
+        # phase 6's and 7's CPU laps (minutes on one core each) run in
+        # worker processes beside phases 3-5 on the card
         cpu_pool = multiprocessing.get_context("spawn").Pool(
-            len(NMPC_CONFIGS))
+            len(NMPC_CONFIGS) + 1)
         nmpc_refs = start_cpu_references(cpu_pool, NMPC_CONFIGS, NMPC_TICKS)
+        raceline_refs = start_cpu_references(
+            cpu_pool, [RACELINE_CONFIG], RACELINE_TICKS, plan_np)
         paths, outs = [], {}
         for backend in ("riccati", "dense"):
             outs[backend], counts = main_path(backend, model, device, card,
@@ -1678,12 +1888,16 @@ def main() -> int:
         dense_refs = accuracy_warm_chain("dense", outs["dense"], model)
         accuracy_same_qp(outs["dense"], dense_refs, model)
         paths.extend(closed_loop_phase(
-            "sim", [("ltv",) + c for c in SIM_CONFIGS], SIM_TICKS,
-            SIM_STATE_TOL, model, device, card, kres))
+            "sim", SIM_CONFIGS, SIM_TICKS, SIM_STATE_TOL, model, device,
+            card, kres))
         paths.append(lap_phase(model, card))
         paths.extend(closed_loop_phase(
             "nmpc", NMPC_CONFIGS, NMPC_TICKS, NMPC_STATE_TOL, model, device,
             card, kres, nmpc_refs))
+        paths.extend(closed_loop_phase(
+            "raceline", [RACELINE_CONFIG], RACELINE_TICKS,
+            RACELINE_STATE_TOL, model, device, card, kres, raceline_refs,
+            plan=plan))
         line = kernel_line(kres, paths)
     except Fail as e:
         log(f"FAIL: {e}")

@@ -11,13 +11,24 @@
 // Design.  On the TPU the batch rode the 128 vector lanes and one grid
 // step factored 128 instances in VMEM.  Here one block takes one
 // instance, and the matrix (n = 84 for the dynamic LTV QP: 80 controls
-// and 4 slacks) lives in shared memory for the whole factorisation.
+// and 4 slacks; n = 163 for Hermite-Simpson collocation at N = 40: 162
+// controls and 1 slack) lives in shared memory for the whole
+// factorisation.  Both kernels take 1 <= n <= 192 (MAX_N).  A lane holds
+// SLOTS rows of a 32-row panel, a template parameter: 5 for n <= 160
+// (the build the n = 84 path has always run, with its registers and
+// time) and 6 for 161 <= n <= 192.  Above 48 KB of dynamic shared memory
+// a launch opts in (cudaFuncAttributeMaxDynamicSharedMemorySize), once
+// per kernel instance and per larger size: K6 at n = 163 takes 56,826
+// bytes (861 tiles), at n = 192 77,616 (1,176 tiles); K7 54,768 and
+// 75,648 bytes.
 //
 //   chol_factor_f32: right-looking and blocked, 128 threads a block.  The
 //     lower triangle is kept in shared memory as 4x4 tiles, packed tile
 //     column by tile column, row-major inside a tile (14.8 KB at n = 84;
 //     an n that is not a multiple of 4 is padded with identity rows,
-//     which the factorisation leaves as they are).  For each panel, one
+//     which the factorisation leaves as they are; a tile's (row, column)
+//     pair is packed in 16 bits, 8 each, for up to 48 tile rows).  For
+//     each panel, one
 //     tile column (4 columns of L):
 //       1. warp 0 factors the panel: each lane holds rows of it in
 //          registers; column by column, the pivot and the multipliers of
@@ -34,7 +45,7 @@
 //     leaves coalesced, zeros included.  Only the lower triangle of K is
 //     used; L's upper triangle is written as zeros.
 //   chol_solve_f32: one warp per instance; lane l owns rows l + 32 p (p <
-//     5, so n up to 160), and keeps their entries of y and x in registers
+//     SLOTS), and keeps their entries of y and x in registers
 //     for both sweeps.  The lower triangle of L alone (packed row by row,
 //     14 KB at n = 84, half the bytes of the whole matrix) is staged in
 //     shared memory by 4-byte cp.async copies, a flat walk over its
@@ -59,13 +70,16 @@
 // and does n^2 multiply-adds.  Both are bound by device-memory bytes at
 // the main path's widths (chip_smoke.py prints the bounds).  Eight factor
 // blocks an SM (registers capped at 64, 15.3 KB of shared memory) hold
-// B = 1024 in one wave; what holds the factor above its bound is that the
+// B = 1024 in one wave (at n = 163 shared memory holds four blocks an
+// SM, so B = 1024 takes two waves, at n = 192 two blocks, four waves);
+// what holds the factor above its bound is that the
 // blocks of that wave load, factor and store in step, so the three
 // phases' times add up (tools/kernel_variants.py splits them), and the
 // factor phase is bound by shared-memory traffic and the 21 panels'
 // dependent steps.  The solve is one warp a block, B = 1024 blocks in one
 // wave: its time is one block's latency, the loads (at about half the
-// memory rate) plus the 2n dependent steps of the sweeps.
+// memory rate) plus the 2n dependent steps of the sweeps (at n = 163 only
+// four blocks of 55 KB fit an SM: two waves of latency-bound warps).
 //
 // Numerics.  Built without --use_fast_math.  A pivot c_j that is not
 // positive (or NaN) becomes NaN before the rsqrt, exactly as the Pallas
@@ -84,6 +98,10 @@
 //   2  a pivot that is not positive is clamped to 1e-6 instead of NaN
 //   3  the solve skips column 40's update in the forward sweep
 //   4  the solve's back sweep reads column j of L in place of row j
+//   5  the factor's panel leaves its sixth slot (rows j0 + 160 + lane)
+//      unwritten: only the n > 160 build has that slot
+//   6  the solve's back sweep drops rows 160 and on from the earlier
+//      panels' dot products: only n > 160 has such rows
 
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
@@ -96,12 +114,13 @@
 
 namespace {
 
-constexpr int MAX_SMEM = 48 * 1024;
+constexpr int MAX_N = 192;
+constexpr int DEFAULT_SMEM = 48 * 1024;  // above it a launch opts in
 constexpr int LOADS = 8;  // global loads in flight per thread while staging
 constexpr int FAC_THREADS = 128;
-constexpr int FAC_SLOTS = 5;  // panel rows a lane holds: n up to 160
 constexpr int FAC_LOADS = 8;  // float4 loads in flight per thread
-constexpr int SOL_SLOTS = 5;  // rows a lane of the solve owns: n up to 160
+// rows of a 32-row panel a lane holds: 5 up to n = 160, 6 up to MAX_N
+constexpr int slots_of(int n) { return n <= 160 ? 5 : 6; }
 
 __device__ __forceinline__ float nan_f() { return __int_as_float(0x7fc00000); }
 
@@ -131,7 +150,11 @@ __device__ __forceinline__ float sub_dot4(float v, float4 a, float4 b) {
   return v - (a.x * b.x + a.y * b.y + a.z * b.z + a.w * b.w);
 }
 
-__global__ void __launch_bounds__(FAC_THREADS, 8)
+// eight blocks an SM at n <= 160 (64 registers a thread); above, shared
+// memory holds at most four blocks an SM, so the six-slot build may take
+// more registers
+template <int SLOTS>
+__global__ void __launch_bounds__(FAC_THREADS, SLOTS == 5 ? 8 : 4)
 chol_factor_kernel(const float* __restrict__ K, float* __restrict__ L,
                    int n, bool vec) {
   extern __shared__ __align__(16) float sm[];
@@ -209,9 +232,9 @@ chol_factor_kernel(const float* __restrict__ K, float* __restrict__ L,
     if (tid < 32) {
       // 1. the panel: lane l holds rows j0 + l + 32 s; rows j0..j0+3 (the
       // diagonal tile) are lanes 0-3 of slot 0
-      float4 a[FAC_SLOTS] = {};                   // rows past np: zeros
+      float4 a[SLOTS] = {};                       // rows past np: zeros
 #pragma unroll
-      for (int s = 0; s < FAC_SLOTS; ++s) {
+      for (int s = 0; s < SLOTS; ++s) {
         const int i = j0 + tid + 32 * s;
         if (i < np)
           a[s] = reinterpret_cast<const float4*>(S + tile_off(i >> 2, p, nt))
@@ -222,19 +245,19 @@ chol_factor_kernel(const float* __restrict__ K, float* __restrict__ L,
         const float piv = __shfl_sync(0xffffffffu, at4(a[0], c), c);
         const float d = rsqrtf(piv > 0.0f ? piv : PLANT(2) ? 1e-6f : nan_f());
 #pragma unroll
-        for (int s = 0; s < FAC_SLOTS; ++s) at4(a[s], c) *= d;
+        for (int s = 0; s < SLOTS; ++s) at4(a[s], c) *= d;
 #pragma unroll
         for (int c2 = c + 1; c2 < 4; ++c2) {
           const float m = __shfl_sync(0xffffffffu, at4(a[0], c), c2);
 #pragma unroll
-          for (int s = 0; s < FAC_SLOTS; ++s)
+          for (int s = 0; s < SLOTS; ++s)
             at4(a[s], c2) -= at4(a[s], c) * m;
         }
       }
 #pragma unroll
-      for (int s = 0; s < FAC_SLOTS; ++s) {
+      for (int s = 0; s < SLOTS; ++s) {
         const int i = j0 + tid + 32 * s;
-        if (i < np)
+        if (i < np && !(PLANT(5) && s == 5))
           reinterpret_cast<float4*>(S + tile_off(i >> 2, p, nt))[i & 3] = a[s];
       }
     }
@@ -305,6 +328,7 @@ chol_factor_kernel(const float* __restrict__ K, float* __restrict__ L,
 // back sweep's row reads.
 __host__ __device__ __forceinline__ int tri(int i) { return i * (i + 1) / 2; }
 
+template <int SLOTS>
 __global__ void __launch_bounds__(32)
 chol_solve_kernel(const float* __restrict__ L, const float* __restrict__ rhs,
                   float* __restrict__ x, int n) {
@@ -319,7 +343,7 @@ chol_solve_kernel(const float* __restrict__ L, const float* __restrict__ rhs,
   // entries t = tri(i) + k, lane-consecutive, (i, k) advanced without a
   // divide
 #pragma unroll
-  for (int p = 0; p < SOL_SLOTS; ++p) {
+  for (int p = 0; p < SLOTS; ++p) {
     const int t1 = tri(min(n, 32 * (p + 1)));
     int i = 32 * p, k = lane;
     while (k > i) k -= ++i;
@@ -333,9 +357,9 @@ chol_solve_kernel(const float* __restrict__ L, const float* __restrict__ rhs,
   // lane l owns rows l + 32 p: its entries of y and x stay in registers
   // (the panel loops unroll, so p is static; the steps inside a panel stay
   // a loop unrolled by 4, which ran faster than fully unrolled sweeps)
-  float y[SOL_SLOTS];
+  float y[SLOTS];
 #pragma unroll
-  for (int p = 0; p < SOL_SLOTS; ++p) {
+  for (int p = 0; p < SLOTS; ++p) {
     const int i = 32 * p + lane;
     y[p] = i < n ? rhs[(size_t)blockIdx.x * n + i] : 0.0f;
   }
@@ -347,9 +371,9 @@ chol_solve_kernel(const float* __restrict__ L, const float* __restrict__ rhs,
   // lane does each step's FMA, with 0 where its row has no L_ij: no
   // divergent branch between two shuffles.
 #pragma unroll
-  for (int p = 0; p < SOL_SLOTS; ++p) {
+  for (int p = 0; p < SLOTS; ++p) {
     if (32 * p >= n) break;
-    __pipeline_wait_prior(SOL_SLOTS - 1 - p);
+    __pipeline_wait_prior(SLOTS - 1 - p);
     __syncwarp();
     const int i = 32 * p + lane;
     const bool own = i < n;
@@ -382,14 +406,15 @@ chol_solve_kernel(const float* __restrict__ L, const float* __restrict__ rhs,
   // panels after enter as one dot product per row, then the panel's own
   // rows j of L in axpy form
 #pragma unroll
-  for (int p = SOL_SLOTS - 1; p >= 0; --p) {
+  for (int p = SLOTS - 1; p >= 0; --p) {
     if (32 * p >= n) continue;
     const int i = 32 * p + lane;
     const bool own = i < n;
     const int ic = min(i, n - 1);
     if (own) {
       float acc = 0.0f;
-      for (int j = 32 * (p + 1); j < n; ++j) acc += T[tri(j) + i] * V[j];
+      for (int j = 32 * (p + 1); j < n; ++j)
+        if (!(PLANT(6) && j >= 160)) acc += T[tri(j) + i] * V[j];
       y[p] -= acc;
     }
 #pragma unroll 4
@@ -409,29 +434,57 @@ chol_solve_kernel(const float* __restrict__ L, const float* __restrict__ rhs,
   }
 }
 
+// Opt in to more than 48 KB of dynamic shared memory, once per kernel
+// instance and per larger size (``opted``: the largest set so far).
+template <class Kern>
+int opt_in(Kern kern, size_t smem, int& opted) {
+  if (smem <= (size_t)DEFAULT_SMEM || (int)smem <= opted) return 0;
+  const int err = (int)cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == 0) opted = (int)smem;
+  return err;
+}
+
+template <int SLOTS>
+int launch_factor(const float* K, float* L, int batch, int n, size_t smem,
+                  bool vec, cudaStream_t st) {
+  static int opted = 0;
+  auto kern = chol_factor_kernel<SLOTS>;
+  if (const int err = opt_in(kern, smem, opted)) return err;
+  kern<<<batch, FAC_THREADS, smem, st>>>(K, L, n, vec);
+  return (int)cudaGetLastError();
+}
+
+template <int SLOTS>
+int launch_solve(const float* L, const float* rhs, float* x, int batch,
+                 int n, size_t smem, cudaStream_t st) {
+  static int opted = 0;
+  auto kern = chol_solve_kernel<SLOTS>;
+  if (const int err = opt_in(kern, smem, opted)) return err;
+  kern<<<batch, 32, smem, st>>>(L, rhs, x, n);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int chol_factor_f32(const float* K, float* L, int batch, int n,
                                void* stream) {
-  if (batch <= 0 || n <= 0 || n > 32 * FAC_SLOTS)
-    return (int)cudaErrorInvalidValue;
+  if (batch <= 0 || n <= 0 || n > MAX_N) return (int)cudaErrorInvalidValue;
   const int ntiles = tiles_of(n);
   const size_t smem = sizeof(float) * 16 * ntiles
                       + sizeof(unsigned short) * ntiles;
-  if (smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
   // float4 rows where every row of K and L starts on 16 bytes
   const bool vec = n % 4 == 0 && ((uintptr_t)K | (uintptr_t)L) % 16 == 0;
-  chol_factor_kernel<<<batch, FAC_THREADS, smem, (cudaStream_t)stream>>>(
-      K, L, n, vec);
-  return (int)cudaGetLastError();
+  const cudaStream_t st = (cudaStream_t)stream;
+  return slots_of(n) == 5 ? launch_factor<5>(K, L, batch, n, smem, vec, st)
+                          : launch_factor<6>(K, L, batch, n, smem, vec, st);
 }
 
 extern "C" int chol_solve_f32(const float* L, const float* rhs, float* x,
                               int batch, int n, void* stream) {
-  if (batch <= 0 || n <= 0 || n > 32 * SOL_SLOTS)
-    return (int)cudaErrorInvalidValue;
+  if (batch <= 0 || n <= 0 || n > MAX_N) return (int)cudaErrorInvalidValue;
   const size_t smem = sizeof(float) * ((size_t)tri(n) + 2 * n);
-  if (smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
-  chol_solve_kernel<<<batch, 32, smem, (cudaStream_t)stream>>>(L, rhs, x, n);
-  return (int)cudaGetLastError();
+  const cudaStream_t st = (cudaStream_t)stream;
+  return slots_of(n) == 5 ? launch_solve<5>(L, rhs, x, batch, n, smem, st)
+                          : launch_solve<6>(L, rhs, x, batch, n, smem, st);
 }

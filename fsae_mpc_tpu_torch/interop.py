@@ -23,6 +23,7 @@ import torch
 from .config import MPCParams, VehicleParams
 from .ops.ipm import IpmOptions, IpmResult
 from .ops.riccati import StageIpmResult, StageQP
+from .planner.min_time import PlannerResult
 from .sim.closed_loop import SimConfig, SimOutputs
 from .track.track import Track
 
@@ -100,6 +101,14 @@ def ipm_result(src: Mapping, dtype=None,
     """A (batched) ``fsae_mpc_tpu.ops.ipm.IpmResult`` -- the dense
     solver's state one tick hands to the next as its warm start."""
     return _fields(IpmResult, src, dtype, device)
+
+
+def planner_result(src: Mapping, dtype=torch.float64,
+                   device="cuda") -> PlannerResult:
+    """A ``fsae_mpc_tpu.planner.PlannerResult``.  The plan stays float64
+    on any device by default: the planners run in f64 and the closed loop
+    resamples the plan in its own dtype (``reference="raceline"``)."""
+    return _fields(PlannerResult, src, dtype, device)
 
 
 def to_numpy(obj) -> dict:

@@ -1,5 +1,5 @@
-"""Direct-collocation NMPC, trapezoidal transcription, batch-first (port of
-the trapezoidal part of ``fsae_mpc_tpu.mpc.collocation``).
+"""Direct-collocation NMPC, trapezoidal and Hermite-Simpson transcriptions,
+batch-first (port of ``fsae_mpc_tpu.mpc.collocation``).
 
 The knot states stay decision variables of the NLP; each SQP subproblem
 linearises the implicit trapezoidal defect
@@ -15,7 +15,15 @@ which couples two controls a step.  The dense backend condenses it with
 ``ops.condense.condense_general`` and solves the condensed QP over the
 N+1 controls and the slacks; the Riccati backend solves it stage-wise on
 the augmented state z_k = [x_k; u_k] (:func:`_trapezoidal_stage_qp`).
-Hermite-Simpson is not ported.
+
+Hermite-Simpson (:func:`hs_nmpc_kinematic`, kinematic model, dense
+backend only, as in the JAX package) keeps 2N+1 points at dt/2: the
+midpoint-interpolation constraint is solved for each midpoint and
+substituted into the Simpson defect, which leaves a knot recurrence
+coupling three controls (u_2i, u_2i+1, u_2i+2), condensed with
+``condense_general`` at stride 2, and an affine midpoint map.  Its
+condensed QP has (2N+1) nu + 1 variables: 163 at N = 40, which the dense
+Cholesky kernels take (n <= 192).
 """
 
 from __future__ import annotations
@@ -29,7 +37,7 @@ from ..models import curvilinear as cm
 from ..ops import ipm
 from ..ops import riccati
 from ..ops.condense import condense_general
-from ..ops.linalg import solve_unrolled
+from ..ops.linalg import column_blocks, solve_unrolled
 from ..ops.precision import highest as _highest_precision
 from . import constraints as cons
 from .ltv import _const, assemble_condensed_qp
@@ -328,3 +336,183 @@ def trapezoidal_nmpc_dynamic(x0, x_ref, track, params: VehicleParams,
                              [mpc.w_track, mpc.w_slip], u_lb, u_ub, mpc,
                              x_init, u_init, opts, sqp_iters, warm, backend,
                              trust_u=trust_u)
+
+
+def _mv(a, v):
+    """Stage-wise matrix-vector products: (B, N, i, j) x (B, N, j)."""
+    return torch.einsum("bnij,bnj->bni", a, v)
+
+
+@_highest_precision
+def _hs_stages(f, x_knots, x_mids, u_pts, dt):
+    """The linearised Hermite-Simpson interval maps in absolute
+    coordinates.
+
+    ``x_knots`` (B, N+1, nx): knots x_0..x_N; ``x_mids`` (B, N, nx):
+    midpoints; ``u_pts`` (B, 2N+1, nu): controls at every point.  The
+    midpoint-interpolation constraint (x_p + x_q)/2 + dt/8 (f_p - f_q) =
+    x_m is solved for x_m and substituted into the Simpson defect x_p -
+    x_q + dt/6 (f_p + 4 f_m + f_q) = 0, which gives the knot recurrence
+    and the affine midpoint map.  Returns, each (B, N, ...),
+
+      (Ad, B0, B1, B2, dd):      x_q = Ad x_p + B0 u_p + B1 u_m + B2 u_q + dd
+      (P, Q, Bm0, Bm2, dm):      x_m = P x_p + Q x_q + Bm0 u_p + Bm2 u_q + dm
+    """
+    nx = x_knots.shape[-1]
+    I = torch.eye(nx, dtype=x_knots.dtype, device=x_knots.device)
+    u_kn = u_pts[:, 0::2]                       # (B, N+1, nu) at the knots
+    u_md = u_pts[:, 1::2]                       # (B, N, nu) at the midpoints
+
+    fk, Ak, Bk = _linearize_continuous(f, x_knots, u_kn)
+    fm, Am, Bm = _linearize_continuous(f, x_mids, u_md)
+    A_p, A_q = Ak[:, :-1], Ak[:, 1:]
+    B_p, B_q = Bk[:, :-1], Bk[:, 1:]
+    f_p, f_q = fk[:, :-1], fk[:, 1:]
+    x_p, x_q = x_knots[:, :-1], x_knots[:, 1:]
+
+    # the midpoint map in delta coordinates:
+    # dx_m = P dx_p + Q dx_q + dt/8 (B_p du_p - B_q du_q) + r_m
+    P = 0.5 * I + (dt / 8.0) * A_p
+    Q = 0.5 * I - (dt / 8.0) * A_q
+    r_m = (x_p + x_q) / 2.0 + (dt / 8.0) * (f_p - f_q) - x_mids
+
+    # the Simpson defect linearised, dx_m substituted
+    r_s = x_p - x_q + (dt / 6.0) * (f_p + 4.0 * fm + f_q)
+    G_p = I + (dt / 6.0) * A_p + (2.0 * dt / 3.0) * (Am @ P)
+    M_q = I - (dt / 6.0) * A_q - (2.0 * dt / 3.0) * (Am @ Q)
+    C0 = (dt / 6.0) * B_p + (dt * dt / 12.0) * (Am @ B_p)
+    C1 = (2.0 * dt / 3.0) * Bm
+    C2 = (dt / 6.0) * B_q - (dt * dt / 12.0) * (Am @ B_q)
+    r_tot = r_s + (2.0 * dt / 3.0) * _mv(Am, r_m)
+
+    Ad = solve_unrolled(M_q, G_p)
+    B0 = solve_unrolled(M_q, C0)
+    B1 = solve_unrolled(M_q, C1)
+    B2 = solve_unrolled(M_q, C2)
+    dr = solve_unrolled(M_q, r_tot[..., None])[..., 0]
+    # absolute offsets
+    dd = (dr + x_q - _mv(Ad, x_p) - _mv(B0, u_kn[:, :-1]) - _mv(B1, u_md)
+          - _mv(B2, u_kn[:, 1:]))
+    Bm0 = (dt / 8.0) * B_p
+    Bm2 = -(dt / 8.0) * B_q
+    dm = (r_m + x_mids - _mv(P, x_p) - _mv(Q, x_q) - _mv(Bm0, u_kn[:, :-1])
+          - _mv(Bm2, u_kn[:, 1:]))
+    return (Ad, B0, B1, B2, dd), (P, Q, Bm0, Bm2, dm)
+
+
+def _hs_weights(mpc: MPCParams, nx, N, dtype, device):
+    """Simpson cost weights over points 0..2N: the tracking weights of
+    points 1..2N (2N*nx,) (point 0 is fixed) and the control weights of
+    every point ((2N+1)*nu,); the factors are host constants, as in the
+    JAX package."""
+    NC = 2 * N + 1
+    Qt = mpc.q_terminal_scale
+    qf = np.empty(NC)
+    qf[0] = 1.0 / 6.0
+    qf[1::2] = 4.0 / 6.0                        # midpoints
+    qf[2::2] = 2.0 / 6.0                        # interior knots
+    qf[2 * N - 2] = (1.0 + Qt) / 6.0
+    qf[2 * N - 1] = 4.0 * Qt / 6.0
+    qf[2 * N] = Qt / 6.0
+    rf = np.empty(NC)
+    rf[1::2] = 4.0 / 6.0
+    rf[0::2] = 2.0 / 6.0
+    rf[0] = rf[-1] = 1.0 / 6.0
+    q = np.zeros(nx)
+    q[:3] = [mpc.q_s, mpc.q_n, mpc.q_mu]
+    r = np.array([mpc.r_a, mpc.r_delta_d])
+    return (_const(np.concatenate([q * w for w in qf[1:]]), dtype, device),
+            _const(np.concatenate([r * w for w in rf]), dtype, device))
+
+
+def _interleave(mid, knot):
+    """(B, N, ...) midpoint and knot tensors as the virtual stages 1..2N,
+    [mid_0, knot_1, mid_1, knot_2, ...]: (B, 2N, ...)."""
+    return torch.stack([mid, knot], 2).flatten(1, 2)
+
+
+def hs_nmpc_kinematic(x0, x_ref, track, params: VehicleParams,
+                      mpc: MPCParams, x_init, u_init,
+                      opts: ipm.IpmOptions = ipm.IpmOptions(),
+                      sqp_iters: int = 3, warm=None) -> SqpResult:
+    """A batch of Hermite-Simpson C-NMPC ticks, kinematic model, dense
+    backend: 2N+1 collocation points with the midpoints eliminated, the
+    Simpson cost weights, the soft track and lateral-acceleration rows at
+    every point after the first sharing one slack.
+
+    ``x0`` (B, 5); ``x_init`` (B, 2N+1, 5): the iterate over all points
+    (point 0 is pinned to x0); ``u_init`` (B, 2N+1, 2); ``x_ref``
+    (B, N, 5) at the knots (midpoint references interpolated).  The
+    condensed QP has (2N+1)*2 + 1 variables.
+    """
+    N = mpc.n_steps
+    Bsz, dtype, dev = x0.shape[0], x_init.dtype, x_init.device
+    nx, nu = 5, 2
+    NC = 2 * N + 1
+    NCnu = NC * nu
+    f = lambda x, u: cm.f_curv_kin(x, u, track, params)
+    q_diag, r_diag = _hs_weights(mpc, nx, N, dtype, dev)
+
+    # references at points 1..2N: each midpoint's between its knots
+    x_ref_k = torch.cat([x0[:, None], x_ref], 1)          # (B, N+1, nx)
+    x_ref_all = _interleave(0.5 * (x_ref_k[:, :-1] + x_ref_k[:, 1:]), x_ref)
+    u_lb = _const([-mpc.a_max, -mpc.delta_d_max], dtype,
+                  dev).repeat(Bsz, NC, 1)
+    eye = torch.eye(nx, dtype=dtype, device=dev).expand(Bsz, 1, nx, nx)
+
+    def sqp_iter(carry, qp_warm):
+        x_pts, u_pts = carry
+        x_pts = torch.cat([x0[:, None], x_pts[:, 1:]], 1)
+        (Ad, B0, B1, B2, dd), (Pm, Qm, Bm0, Bm2, dm) = _hs_stages(
+            f, x_pts[:, 0::2], x_pts[:, 1::2], u_pts, mpc.dt)
+
+        # the knot chain condensed with its (u_2i, u_2i+1, u_2i+2) coupling
+        A_bar, B_bar, d_bar = condense_general(
+            Ad, dd, [(B0, 0), (B1, 1), (B2, 2)], n_controls=NC,
+            ctrl_stride=2)
+        # the knot maps from knot 0 (= x0 exactly: A = I, B = 0, d = 0)
+        knotA = torch.cat([eye, A_bar], 1)
+        knotB = torch.cat([torch.zeros_like(B_bar[:, :1]), B_bar], 1)
+        knotd = torch.cat([torch.zeros_like(d_bar[:, :1]), d_bar], 1)
+
+        # the midpoint maps composed from their two knots:
+        # x_m(i) = Pm_i x_knot(i) + Qm_i x_knot(i+1) + Bm0_i u_2i
+        #          + Bm2_i u_2i+2 + dm_i
+        A_mid = Pm @ knotA[:, :-1] + Qm @ knotA[:, 1:]
+        B_mid = (Pm @ knotB[:, :-1] + Qm @ knotB[:, 1:]).contiguous()
+        d_mid = dm + _mv(Pm, knotd[:, :-1]) + _mv(Qm, knotd[:, 1:])
+        column_blocks(B_mid, nu, 2 * nu).add_(Bm0)           # u_2i
+        column_blocks(B_mid, nu, 2 * nu, 2 * nu).add_(Bm2)   # u_2i+2
+
+        A_all = _interleave(A_mid, knotA[:, 1:])
+        B_all = _interleave(B_mid, knotB[:, 1:])
+        d_all = _interleave(d_mid, knotd[:, 1:])
+        groups = _track_groups([3, 4], x_pts[:, 1:], u_pts[:, 1:], mpc) + [
+            cons.kinematic_tyre_group(x_pts[:, 1:], u_pts[:, 1:], mpc,
+                                      params, slack=0)]
+        H, g, A, lb, ub, lbA, ubA, const = assemble_condensed_qp(
+            A_all, B_all, d_all, x0, x_ref_all, q_diag, r_diag,
+            [mpc.w_track], groups, u_lb, -u_lb)
+        res = ipm.solve_qp(H, g, A, lb, ub, lbA, ubA, opts, warm=qp_warm)
+        u_flat = res.x[:, :NCnu]
+        x_new = (torch.einsum("bnij,bj->bni", A_all, x0)
+                 + torch.einsum("bnij,bj->bni", B_all, u_flat) + d_all)
+        return ((torch.cat([x0[:, None], x_new], 1),
+                 u_flat.reshape(Bsz, NC, nu)),
+                (res.x[:, NCnu:], res.objective + const, res))
+
+    x_opt, u_opt, last = run_sqp(sqp_iter, x_init, u_init, sqp_iters, warm)
+    return SqpResult(x_opt=x_opt, u_opt=u_opt, slack=last[0], fval=last[1],
+                     qp=last[2])
+
+
+def hs_shift_trajectory(x_opt, u_opt, step_half_fn):
+    """The warm-start shift of a batch on the Hermite-Simpson grid: a
+    tick advances one knot, two points, so the first two points go and
+    the tail grows by two half-steps of ``step_half_fn`` (per instance:
+    ``x`` (nx,), ``u`` (nu,)) under the last control."""
+    step = vmap(step_half_fn)
+    x_a = step(x_opt[:, -1], u_opt[:, -1])
+    x_b = step(x_a, u_opt[:, -1])
+    return (torch.cat([x_opt[:, 2:], x_a[:, None], x_b[:, None]], 1),
+            torch.cat([u_opt[:, 2:], u_opt[:, -1:], u_opt[:, -1:]], 1))

@@ -1,13 +1,14 @@
 """Condensing: stage-wise affine dynamics -> dense prediction matrices
-(port of ``condense``, ``condense_general`` and ``rollout`` of
-``fsae_mpc_tpu.ops.condense``).
+(port of ``condense``, ``condense_associative``, ``condense_general`` and
+``rollout`` of ``fsae_mpc_tpu.ops.condense``).
 
 Inputs are the discrete stage matrices (x_{k+1} = Ad x_k + Bd u_k + dd),
 batch first.  :func:`condense` is the horizon recurrence written as a
 plain loop over the N stages, the plain version of the hand-written
 kernel in ``ops/kernels/condense.py``.  :func:`condense_general` (the
-collocation transcriptions' multi-control recurrence) has no TPU kernel
-in the JAX package and stays plain PyTorch.
+collocation transcriptions' multi-control recurrence) and
+:func:`condense_associative` (the transition products in log depth) have
+no TPU kernel in the JAX package and stay plain PyTorch.
 """
 
 from __future__ import annotations
@@ -48,6 +49,28 @@ def condense(Ad, Bd, dd):
         B_bar.append(G)
         d_bar.append(delta)
     return torch.stack(A_bar, 1), torch.stack(B_bar, 1), torch.stack(d_bar, 1)
+
+
+@_highest_precision
+def condense_associative(Ad, dd):
+    """The transition and offset products in log depth: the pair
+    (Phi_i, delta_i) composes associatively, (A2, d2) o (A1, d1) =
+    (A2 A1, A2 d1 + d2), so ceil(log2 N) rounds of a Hillis-Steele
+    inclusive scan over the stage axis give every prefix (the JAX
+    package's ``lax.associative_scan``, another tree of the same
+    products).  ``Ad`` (..., N, nx, nx), ``dd`` (..., N, nx).  Returns
+    (A_bar, d_bar) as :func:`condense`.
+    """
+    A, d = Ad, dd
+    N = Ad.shape[-3]
+    w = 1
+    while w < N:
+        A_w = A[..., w:, :, :]
+        d = torch.cat([d[..., :w, :], torch.einsum(
+            "...ij,...j->...i", A_w, d[..., :-w, :]) + d[..., w:, :]], -2)
+        A = torch.cat([A[..., :w, :, :], A_w @ A[..., :-w, :, :]], -3)
+        w *= 2
+    return A, d
 
 
 @_highest_precision

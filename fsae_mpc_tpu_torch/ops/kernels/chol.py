@@ -47,9 +47,11 @@ _LIB = Library("chol.cu", {
 })
 
 
-# the widest KKT matrix the kernels take: chol_factor_f32 keeps the packed
-# lower triangle (4x4 tiles) in 48 KB of shared memory
-MAX_N = 152
+# the widest KKT matrix the kernels take: a lane of a 32-row panel holds
+# at most six rows (csrc/chol.cu: the five-slot build up to n = 160, the
+# six-slot one above), and the packed lower triangle stays in shared
+# memory (77.6 KB for chol_factor_f32 at n = 192, past the 48 KB opt-in)
+MAX_N = 192
 
 
 def check_entry(device, dtype, n: int, chol: str) -> None:

@@ -1,5 +1,6 @@
 """Small dense solves of the collocation transcriptions (port of
-``solve_unrolled`` of ``fsae_mpc_tpu.ops.linalg``)."""
+``solve_unrolled`` of ``fsae_mpc_tpu.ops.linalg``), and the block placement
+that Hermite-Simpson and the planners' condensed maps share."""
 
 from __future__ import annotations
 
@@ -29,3 +30,21 @@ def solve_unrolled(A, B):
         Bw = torch.where(mask, row_b[..., None, :],
                          Bw - factors * row_b[..., None, :])
     return Bw
+
+
+def column_blocks(t, width: int, step: int, first: int = 0):
+    """A view of the block-diagonal band of ``t`` (..., K, R, C): for row
+    block k, its columns ``first + k*step .. first + k*step + width``, as
+    (..., K, R, width).  Index arithmetic on the strides: writing into the
+    view (``copy_``, ``+=``) places K blocks at once, with no index tensor
+    and no host synchronisation (the counterpart of the JAX package's
+    ``vmap`` over ``lax.dynamic_update_slice``).  The caller keeps every
+    block inside the row: ``first + (K-1)*step + width <= C``."""
+    *lead, K, R, C = t.shape
+    if K and first + (K - 1) * step + width > C:
+        raise ValueError(f"column blocks past the last column: {first} + "
+                         f"{K - 1}*{step} + {width} > {C}")
+    st = t.stride()
+    return t.as_strided((*lead, K, R, width),
+                        (*st[:-3], st[-3] + step * st[-1], st[-2], st[-1]),
+                        t.storage_offset() + first * st[-1])

@@ -4,7 +4,8 @@
 One lap per instance of a batch, one control tick per ``mpc.dt`` of
 simulated time:
 
-  tick:  project the plant pose onto the track  ->  speed-ramp reference
+  tick:  project the plant pose onto the track  ->  reference (speed
+             ramp, or the planned raceline resampled in time)
          ->  solve the MPC: the LTV QP (warm-started from the last tick),
              or an NMPC SQP from the shifted last trajectory
          ->  actuate through PID loops + RK6 substeps of the Cartesian
@@ -20,9 +21,10 @@ and times each tick.
 
 Modes: ``"ltv"``, ``"ms-nmpc"`` (multiple shooting, ``stepper`` euler,
 rk2 or rk4) and ``"c-nmpc"`` with the trapezoidal transcription, each
-model on both QP backends.  Hermite-Simpson (``transcription="hs"``) and
-the raceline reference are not ported and raise ``ValueError`` before
-any work.
+model on both QP backends, or with Hermite-Simpson (``transcription=
+"hs"``: kinematic model, dense QP, as in the JAX package).  References:
+``"speed_ramp"``, or ``"raceline"``, which tracks a minimum-time plan
+(``planner.minimum_time_planner_dynamic``'s result, passed as ``plan``).
 """
 
 from __future__ import annotations
@@ -39,6 +41,7 @@ from ..models import curvilinear as cm
 from ..models import integrators, pid, transforms
 from ..mpc import collocation, ltv, sqp
 from ..ops import ipm, riccati
+from ..planner.reference import obtain_reference
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,8 +55,10 @@ class SimConfig:
     sqp_iters: int = 3              # SQP iterations a tick (NMPC modes)
     stepper: str = "rk2"            # MS-NMPC shooting step: "euler" |
                                     # "rk2" | "rk4"
-    transcription: str = "trapezoidal"  # C-NMPC ("hs" raises)
-    reference: str = "speed_ramp"   # ("raceline" raises)
+    transcription: str = "trapezoidal"  # C-NMPC: "trapezoidal" | "hs"
+                                    # (Hermite-Simpson: kinematic, dense)
+    reference: str = "speed_ramp"   # "speed_ramp" | "raceline" (tracks
+                                    # the ``plan`` given to the sim)
     mpc: MPCParams = MPCParams()
     ipm: ipm.IpmOptions = ipm.IpmOptions()
     slack_eps: float = 1e-6         # slack-activation threshold
@@ -111,15 +116,17 @@ def _conv_bars(cfg: SimConfig):
 def _check_config(cfg: SimConfig) -> None:
     if cfg.mode not in ("ltv", "ms-nmpc", "c-nmpc"):
         raise ValueError(f"unknown mode {cfg.mode!r}")
-    if cfg.mode == "c-nmpc" and cfg.transcription != "trapezoidal":
-        raise ValueError(f"transcription={cfg.transcription!r} is not "
-                         "ported (Hermite-Simpson waits for the dense "
-                         "kernels past n = 152); use 'trapezoidal'")
+    if cfg.mode == "c-nmpc" and cfg.transcription not in ("trapezoidal",
+                                                          "hs"):
+        raise ValueError(f"unknown transcription={cfg.transcription!r}")
+    if (cfg.mode == "c-nmpc" and cfg.transcription == "hs"
+            and cfg.model != "kinematic"):
+        raise ValueError("the hs transcription is kinematic-only, as the "
+                         "reference's hs_nmpc_kinematic")
     if cfg.mode == "ms-nmpc" and cfg.stepper not in ("euler", "rk2", "rk4"):
         raise ValueError(f"unknown stepper={cfg.stepper!r}")
-    if cfg.reference != "speed_ramp":
-        raise ValueError(f"reference={cfg.reference!r} is not ported (it "
-                         "needs the min-time planner); use 'speed_ramp'")
+    if cfg.reference not in ("speed_ramp", "raceline"):
+        raise ValueError(f"unknown reference={cfg.reference!r}")
     if cfg.model not in ("kinematic", "dynamic"):
         raise ValueError(f"unknown model={cfg.model!r}")
     if cfg.qp_backend not in ("dense", "riccati"):
@@ -129,9 +136,12 @@ def _check_config(cfg: SimConfig) -> None:
 def _initial_guess(cfg: SimConfig, Bsz, dtype, device):
     """The MPC's first linearisation trajectory: quadratic arclength and a
     linear speed ramp at 10 m/s^2, constant acceleration control; N+1
-    points for collocation, which keeps the initial point."""
+    points for collocation, which keeps the initial point, and 2N+1
+    points at dt/2 for Hermite-Simpson."""
     N, dt = cfg.mpc.n_steps, cfg.mpc.dt
-    if cfg.mode == "c-nmpc":
+    if cfg.mode == "c-nmpc" and cfg.transcription == "hs":
+        N, dt = 2 * N + 1, dt / 2.0
+    elif cfg.mode == "c-nmpc":
         N = N + 1
     nx = 5 if cfg.model == "kinematic" else 7
     t = dt * torch.arange(1, N + 1, dtype=dtype, device=device)
@@ -225,7 +235,7 @@ def _solver(track, params: VehicleParams, cfg: SimConfig):
     package shifts), warm-start only within a tick's SQP loop, and pass
     ``warm=None`` to its first subproblem: a cold start every tick, as in
     the JAX package (an unshifted warm start measured neutral at best
-    there)."""
+    there).  Hermite-Simpson shifts by one knot, two half-steps."""
     kinematic = cfg.model == "kinematic"
     mpc, opts, backend = cfg.mpc, cfg.ipm, cfg.qp_backend
     if cfg.mode == "ltv":
@@ -236,6 +246,13 @@ def _solver(track, params: VehicleParams, cfg: SimConfig):
     f_curv = cm.f_curv_kin if kinematic else cm.f_curv_dyn_only
     f = lambda x, u: f_curv(x, u, track, params)
     step = lambda x, u: integrators.rk2_step(f, x, u, mpc.dt)
+    if cfg.mode == "c-nmpc" and cfg.transcription == "hs":
+        half = lambda x, u: integrators.rk2_step(f, x, u, mpc.dt / 2.0)
+        return lambda x0, x_ref, x_opt, u_opt, warm: (
+            collocation.hs_nmpc_kinematic(
+                x0, x_ref, track, params, mpc,
+                *collocation.hs_shift_trajectory(x_opt, u_opt, half), opts,
+                sqp_iters=cfg.sqp_iters))
     if cfg.mode == "ms-nmpc":
         base = sqp.ms_nmpc_kinematic if kinematic else sqp.ms_nmpc_dynamic
         kw = dict(stepper=cfg.stepper)
@@ -249,12 +266,29 @@ def _solver(track, params: VehicleParams, cfg: SimConfig):
         sqp_iters=cfg.sqp_iters, backend=backend, **kw)
 
 
-def _build_tick(track, params: VehicleParams, cfg: SimConfig, x_init):
+def _raceline_reference(plan, track, cfg: SimConfig, x0):
+    """The plan resampled in time from each instance's s: (B, N, nx), in
+    the loop's dtype.  The plan (float64) is resampled in its own dtype;
+    the rows are [s, *y] cut to the controller's nx, as the JAX package
+    cuts them."""
+    N_nodes = plan.t_node.shape[0]
+    x_ref = obtain_reference(
+        plan.y_opt, plan.u_opt, plan.t_node,
+        track.L.to(plan.t_node.dtype) / N_nodes,
+        x0[:, 0].to(plan.t_node.dtype), cfg.mpc.dt, cfg.mpc.n_steps)
+    return x_ref[..., :x0.shape[-1]].to(x0.dtype)
+
+
+def _build_tick(track, params: VehicleParams, cfg: SimConfig, x_init,
+                plan=None):
     """The per-tick transition ``tick(carry) -> (carry, out)`` and its
     initial carry ``(x, x_opt, u_opt, pids, done, warm)`` (``warm`` None
     in the NMPC modes).  Shared by :func:`simulate` and
     :func:`simulate_timed`."""
     _check_config(cfg)
+    if cfg.reference == "raceline" and plan is None:
+        raise ValueError('reference="raceline" tracks a plan: pass '
+                         "plan=minimum_time_planner_dynamic(...)")
     dtype, device = track.px.dtype, track.px.device
     kinematic = cfg.model == "kinematic"
     nx = 5 if kinematic else 7
@@ -265,8 +299,11 @@ def _build_tick(track, params: VehicleParams, cfg: SimConfig, x_init):
     Bsz = x_init.shape[0]
     solver = _solver(track, params, cfg)
     # actuation setpoints: the first predicted stage; collocation's first
-    # free point is 1 (point 0 is x0)
-    lead = 1 if cfg.mode == "c-nmpc" else 0
+    # free point is 1 (point 0 is x0), Hermite-Simpson's first knot 2
+    # (its points are dt/2 apart)
+    lead = 0
+    if cfg.mode == "c-nmpc":
+        lead = 2 if cfg.transcription == "hs" else 1
     c_pres, c_mu = _conv_bars(cfg)
 
     def tick(carry):
@@ -283,7 +320,11 @@ def _build_tick(track, params: VehicleParams, cfg: SimConfig, x_init):
                              -1)
         done = done | (s >= track.L)
 
-        res = solver(x0, _reference(cfg, x0, x[:, 3]), x_opt, u_opt, warm)
+        if cfg.reference == "raceline":
+            x_ref = _raceline_reference(plan, track, cfg, x0)
+        else:
+            x_ref = _reference(cfg, x0, x[:, 3])
+        res = solver(x0, x_ref, x_opt, u_opt, warm)
 
         x_new, pids_new = plant_substeps(x, res.x_opt[:, lead, 3],
                                          res.x_opt[:, lead, nx - 1], pids,
@@ -323,15 +364,18 @@ def _stack(outs):
 
 
 def simulate(track, params: VehicleParams = VehicleParams(),
-             cfg: SimConfig = SimConfig(), x_init=None) -> SimOutputs:
+             cfg: SimConfig = SimConfig(), x_init=None,
+             plan=None) -> SimOutputs:
     """Run ``cfg.n_ticks`` closed-loop ticks of a batch of laps.
 
     ``x_init``: (B, 7) initial Cartesian plant states on the track's
-    device (default: one instance at rest at the origin).  Every lap runs
-    all ``n_ticks``; an instance whose lap is done is frozen, so nothing
-    here waits for the device.
+    device (default: one instance at rest at the origin).  ``plan``: a
+    ``planner.PlannerResult`` on the track's device, which
+    ``reference="raceline"`` tracks.  Every lap runs all ``n_ticks``; an
+    instance whose lap is done is frozen, so nothing here waits for the
+    device.
     """
-    tick, carry = _build_tick(track, params, cfg, x_init)
+    tick, carry = _build_tick(track, params, cfg, x_init, plan)
     outs = []
     for _ in range(cfg.n_ticks):
         carry, out = tick(carry)
@@ -340,7 +384,7 @@ def simulate(track, params: VehicleParams = VehicleParams(),
 
 
 def simulate_timed(track, params: VehicleParams = VehicleParams(),
-                   cfg: SimConfig = SimConfig(), x_init=None):
+                   cfg: SimConfig = SimConfig(), x_init=None, plan=None):
     """:func:`simulate` stepped from the host, timing every tick on the
     host's clock: one synchronisation per tick (reading whether every lap
     is done), and an early stop once every lap is.
@@ -349,7 +393,7 @@ def simulate_timed(track, params: VehicleParams = VehicleParams(),
     ``(SimOutputs, timing)``: the outputs over the ticks run, and the
     mean, median, p99 and max tick seconds beside ``budget_s = mpc.dt``.
     """
-    tick, carry0 = _build_tick(track, params, cfg, x_init)
+    tick, carry0 = _build_tick(track, params, cfg, x_init, plan)
     bool(tick(carry0)[0][4].all())         # first use; not advanced
     carry = carry0
     outs, times = [], []

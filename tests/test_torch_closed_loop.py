@@ -194,11 +194,17 @@ def test_simulate_timed_stops_early(port_runs):
 
 
 def test_unported_modes_raise(port_runs):
-    """Hermite-Simpson collocation and the raceline reference raise before
-    any work."""
-    for change in ({"mode": "c-nmpc", "transcription": "hs"},
-                   {"reference": "raceline"}):
+    """What the JAX package has no controller or reference for raises
+    before any work: Hermite-Simpson collocation with the dynamic model
+    (kinematic-only, as the reference's ``hs_nmpc_kinematic``), the
+    raceline reference without a plan to track, and unknown names."""
+    for change, match in (
+            ({"mode": "c-nmpc", "transcription": "hs", "model": "dynamic"},
+             "kinematic-only"),
+            ({"reference": "raceline"}, "plan"),
+            ({"mode": "c-nmpc", "transcription": "radau"}, "transcription"),
+            ({"reference": "lidar"}, "reference")):
         cfg = dataclasses.replace(sim.SimConfig(n_ticks=1), **change)
         for run in (sim.simulate, sim.simulate_timed):
-            with pytest.raises(ValueError, match="not ported"):
+            with pytest.raises(ValueError, match=match):
                 run(port_runs[0], VehicleParams(), cfg)

@@ -216,7 +216,10 @@ def test_port_never_imports_jax():
             "fsae_mpc_tpu_torch.models.transforms, "
             "fsae_mpc_tpu_torch.models.pid, fsae_mpc_tpu_torch.mpc.sqp, "
             "fsae_mpc_tpu_torch.mpc.collocation, "
-            "fsae_mpc_tpu_torch.ops.linalg; "
+            "fsae_mpc_tpu_torch.ops.linalg, fsae_mpc_tpu_torch.ops.condense, "
+            "fsae_mpc_tpu_torch.planner, "
+            "fsae_mpc_tpu_torch.planner.min_time, "
+            "fsae_mpc_tpu_torch.planner.reference; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'fsae_mpc_tpu.'))]; "
             "assert not bad, bad")

@@ -4,8 +4,11 @@
 // threads a std::thread, __syncthreads and __syncwarp as barriers, shared
 // memory one static array filled with NaN before each block (a read of
 // what no thread wrote shows up as NaN), cp.async as a copy that checks
-// its alignment and its bounds.  It checks indexing, staging and
-// barriers, not speed and not the card's floating-point contraction.
+// its alignment and its bounds, and a launch with more than 48 KB of
+// dynamic shared memory refused unless the kernel opted in to that much
+// (cudaFuncSetAttribute), as the card refuses it.  It checks indexing,
+// staging and barriers, not speed and not the card's floating-point
+// contraction.
 #pragma once
 #include <algorithm>
 #include <barrier>
@@ -14,6 +17,7 @@
 #include <cstdlib>
 #include <cstdio>
 #include <cstring>
+#include <map>
 #include <memory>
 #include <thread>
 #include <vector>
@@ -38,8 +42,15 @@ enum { cudaSuccess = 0, cudaErrorInvalidValue = 1, cudaErrorMisaligned = 74 };
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize };
 inline int emu_error = 0;
 inline size_t emu_max_smem = 0;
+// the H100's limits: dynamic shared memory without and with the opt-in
+constexpr size_t EMU_DEFAULT_SMEM = 48 * 1024, EMU_OPTIN_SMEM = 232448;
+inline std::map<const void*, size_t> emu_opted;  // kernel -> its opt-in
 template <class F>
-inline int cudaFuncSetAttribute(F, cudaFuncAttribute, int) { return 0; }
+inline int cudaFuncSetAttribute(F f, cudaFuncAttribute, int v) {
+  if (v < 0 || (size_t)v > EMU_OPTIN_SMEM) return cudaErrorInvalidValue;
+  emu_opted[reinterpret_cast<const void*>(f)] = (size_t)v;
+  return cudaSuccess;
+}
 inline int cudaGetLastError() { int e = emu_error; emu_error = 0; return e; }
 alignas(16) inline float emu_smem[1 << 18];
 inline std::barrier<>* emu_block_bar;
@@ -99,6 +110,13 @@ template <class... P, class... A>
 void emu_launch(void (*k)(P...), dim3 grid, dim3 block, size_t smem,
                 cudaStream_t, A... args) {
   if (smem > sizeof(emu_smem)) { emu_error = 78; return; }
+  if (smem > EMU_DEFAULT_SMEM
+      && emu_opted[reinterpret_cast<const void*>(k)] < smem) {
+    std::fprintf(stderr, "launch with %zu bytes of dynamic shared memory "
+                 "without the opt-in\n", smem);
+    emu_error = cudaErrorInvalidValue;
+    return;
+  }
   emu_max_smem = smem;
   gridDim = grid; blockDim = block;
   emu_last[0] = grid.x; emu_last[1] = grid.y; emu_last[2] = block.x;

@@ -5,8 +5,8 @@ versions.
 
     python3 tools/cuda_emu/emulate.py [--source riccati|chol|all]
                                       [--batch B] [--stages N] [--rows R]
-                                      [--plant N] [--chol-plant N]
-                                      [--defer] [--tsan]
+                                      [--n N [N ...]] [--plant N]
+                                      [--chol-plant N] [--defer] [--tsan]
 
 For a machine without a card: ``g++`` (C++20) compiles a source against
 the stand-in runtime beside this file (``cuda_runtime.h``) into
@@ -22,18 +22,23 @@ against the plain version normwise and per instance and output block
 prints each launch's grid, block and dynamic shared memory, and how many
 such blocks the H100's shared memory holds per SM.
 
-chol.cu: the factor (K6) at n 84 and 81, then the solve (K7) on the plain
-factor and on K6's (with each launch's grid, block and shared memory),
-held by componentwise backward error
-(``chip_smoke.chol_backward``) and normwise; and the NaN-poison case
-(``chip_smoke.chol_poisoned``: NaN from the first failing pivot on).
+chol.cu: the factor (K6) at each n of ``--n`` (default: the LTV and NMPC
+widths 84, 81, 82, 83; ``--n 163 192``: the Hermite-Simpson width and the
+widest, above 48 KB of shared memory, which the stand-in runtime refuses
+without the kernel's opt-in, as the card does), then the solve (K7) on
+the plain factor and on K6's (with each launch's grid, block and shared
+memory), held by componentwise backward error
+(``chip_smoke.chol_backward``) and normwise; and the NaN-poison case at
+the first n (``chip_smoke.chol_poisoned``: NaN from the first failing
+pivot on).
 
   --plant N       build riccati.cu with ``-DRICCATI_PLANT=N`` (runs
                   riccati.cu only): the fault's kernel must then fail its
                   check (exit 0 if it does)
   --chol-plant N  build chol.cu with ``-DCHOL_PLANT=N`` (runs chol.cu
-                  only): faults 1 (K6), 3 and 4 (K7) must fail the
+                  only): faults 1, 5 (K6), 3, 4 and 6 (K7) must fail the
                   backward-error check, fault 2 the NaN-poison check
+                  (5 and 6 exist only above n = 160: ``--n 163``)
   --defer         cp.async copies land at the wait that covers them, not
                   at issue (a read before its wait then sees NaN)
   --tsan          build with ThreadSanitizer and run under it: a missing
@@ -199,12 +204,13 @@ def run_riccati(lib_path: str, batch: int, plant: int, N: int,
     return 1 if bad else 0
 
 
-def run_chol(lib_path: str, batch: int, plant: int) -> int:
+def run_chol(lib_path: str, batch: int, plant: int, widths=None) -> int:
     import torch
     sys.path.insert(0, ROOT)
     import chip_smoke as cs
     from fsae_mpc_tpu_torch.ops.kernels import chol as kc
 
+    widths = widths or cs.N_DENSE
     torch.set_num_threads(1)
     call = load(lib_path, kc._LIB.signatures)
 
@@ -221,7 +227,7 @@ def run_chol(lib_path: str, batch: int, plant: int) -> int:
         return x
 
     worst = {}
-    for n in cs.N_DENSE:
+    for n in widths:
         K, b = cs.spd_inputs(batch, n, cs.SEED + batch + n, "cpu")
         L_k, last = factor(K)
         L_p = kc.factor_ref(K).contiguous()
@@ -237,11 +243,12 @@ def run_chol(lib_path: str, batch: int, plant: int) -> int:
         print("\n".join(lines))
         for k, v in res.items():
             worst[k] = max(worst.get(k, 0.0), v)
-    K, b = cs.chol_poison_inputs("cpu")
+    K, b = cs.chol_poison_inputs("cpu", widths[0])
     L, _ = factor(K)
     exact, clean = cs.chol_poisoned(K, L, solve(L, b))
-    print(f"[NaN poison] instances 5, 9 NaN from their first failing pivot "
-          f"on: {exact}, other 35 finite: {clean}")
+    print(f"[NaN poison, n={widths[0]}] instances "
+          f"{cs.CHOL_POISONED} NaN from their first failing pivot on: "
+          f"{exact}, the others finite: {clean}")
     print("worst: " + ", ".join(f"{k} {v:.3e}" for k, v in worst.items()))
     bad = [k for k, v in worst.items() if not v <= cs.KERNEL_RTOL]
     if plant:
@@ -263,6 +270,7 @@ def main() -> int:
     ap.add_argument("--batch", type=int, default=37)
     ap.add_argument("--stages", type=int, default=40)
     ap.add_argument("--rows", type=int, default=20)
+    ap.add_argument("--n", type=int, nargs="+", help="chol.cu's widths")
     ap.add_argument("--plant", type=int, default=0)
     ap.add_argument("--chol-plant", type=int, default=0)
     ap.add_argument("--defer", action="store_true")
@@ -271,7 +279,7 @@ def main() -> int:
     a = ap.parse_args()
     if a.lib:
         if a.source == "chol":
-            return run_chol(a.lib, a.batch, a.chol_plant)
+            return run_chol(a.lib, a.batch, a.chol_plant, a.n)
         return run_riccati(a.lib, a.batch, a.plant, a.stages, a.rows)
     sources = (["riccati"] if a.plant else ["chol"] if a.chol_plant
                else ["riccati", "chol"] if a.source == "all" else [a.source])
@@ -290,7 +298,8 @@ def main() -> int:
             [sys.executable, os.path.abspath(__file__), "--lib", lib,
              "--source", source, "--batch", str(a.batch), "--plant",
              str(a.plant), "--chol-plant", str(a.chol_plant), "--stages",
-             str(a.stages), "--rows", str(a.rows)], env=env).returncode
+             str(a.stages), "--rows", str(a.rows)]
+            + (["--n", *map(str, a.n)] if a.n else []), env=env).returncode
     return rc
 
 

@@ -4,8 +4,11 @@ computed on a CPU.
 
     python3 tools/sim_reference.py t64
     python3 tools/sim_reference.py port-lap
+    python3 tools/sim_reference.py plan64 [--nodes 160] [--port]
+                                          [--threads T] [--out PLAN.npz]
     python3 tools/sim_reference.py divergence [--ticks 20] [--check 4]
-                                              [--nmpc]
+                                              [--nmpc | --raceline PLAN.npz]
+                                              [--only KEY ...]
 
 ``t64``: the JAX package's f64 lap of fsg2019 in the configuration of its
 ``tests/test_laps.py`` f32-equivalence test (dynamic model, dense backend,
@@ -17,13 +20,29 @@ machine; ``chip_smoke.py`` pins the number it prints (``LAP_T64``).
 ``port-lap``: the same lap by the port on the CPU in f64
 (``simulate_timed``, stopping when the lap is done).
 
+``plan64``: the JAX package's f64 dynamic minimum-time plan of fsg2019 at
+``--nodes`` nodes (default 160, ``chip_smoke.PLAN_REF_NODES``) and its
+other defaults (40 SQP iterations, ``IpmOptions()``): lap time, defect and
+slacks; it needs JAX, like ``t64``, and ``chip_smoke.py`` pins its lap
+time (``PLAN_T64``).  At the planner's default 500 nodes one SQP
+iteration takes ~4 minutes on a few CPU cores (a QP of 4,002 variables
+and 5,500 rows), so the CPU's reference is taken at 160, the fewest nodes
+at which the plan converges.  ``--port``: the
+port's f64 plan on the CPU, the same call, with ``--threads`` intra-op
+threads (the gaps between these plans set ``PLAN_TIME_TOL``).  ``--out``:
+the plan's fields as a numpy archive.
+
 ``divergence``: the port's ``simulate`` on the CPU for ``chip_smoke.py``'s
 phase-4 scenarios (instances 0..check-1 of ``sim_scenarios``) and
 configurations, in f32 and in f64, and the largest |x_f32 - x_f64| over
 the ticks per plant state: the floor below which the card's f32 laps
 cannot be held to the CPU's.  With ``--nmpc``: the same for phase 6's
-NMPC configurations (``chip_smoke.NMPC_CONFIGS``), keyed by mode and
-model.
+NMPC configurations (``chip_smoke.NMPC_CONFIGS``), keyed as
+``chip_smoke.Loop.key``; with ``--raceline PLAN.npz``: phase 7's raceline
+loop (``chip_smoke.RACELINE_CONFIG``) tracking that plan (a ``plan64
+--out`` archive, or the card's plan that ``chip_smoke.py`` writes where
+``PLAN_OUT`` names a file).  ``--only``: just the configurations whose
+``Loop.key`` is given (e.g. ``c-nmpc/kinematic/hs``).
 """
 
 from __future__ import annotations
@@ -74,6 +93,45 @@ def port_lap():
     return d
 
 
+def plan64(nodes, iters, port=False, threads=None, out=None):
+    import numpy as np
+    if port:
+        import torch
+        if threads:
+            torch.set_num_threads(threads)
+        from fsae_mpc_tpu_torch import interop
+        from fsae_mpc_tpu_torch.config import VehicleParams
+        from fsae_mpc_tpu_torch.planner import minimum_time_planner_dynamic
+        from fsae_mpc_tpu_torch.track import load_track
+
+        track, _ = load_track(TRACK, dtype=torch.float64, device="cpu")
+        t0 = time.perf_counter()
+        plan = interop.to_numpy(minimum_time_planner_dynamic(
+            track, VehicleParams(), n_nodes=nodes, iters=iters))
+    else:
+        import jax
+        jax.config.update("jax_enable_x64", True)
+        import jax.numpy as jnp
+        from fsae_mpc_tpu.config import VehicleParams
+        from fsae_mpc_tpu.planner import minimum_time_planner_dynamic
+        from fsae_mpc_tpu.track import load_track
+
+        track, _ = load_track(TRACK, dtype=jnp.float64)
+        t0 = time.perf_counter()
+        res = jax.block_until_ready(jax.jit(
+            lambda t: minimum_time_planner_dynamic(
+                t, VehicleParams(), n_nodes=nodes, iters=iters))(track))
+        plan = {k: np.asarray(v) for k, v in vars(res).items()}
+    seconds = time.perf_counter() - t0
+    if out:
+        np.savez(out, **plan)
+    return {"lap_time": float(plan["lap_time"]),
+            "defect_norm": float(plan["defect_norm"]),
+            "slack": plan["slack"].tolist(), "merit": float(plan["merit"]),
+            "mean_x_d": float(plan["y_opt"][:, 2].mean()),
+            "seconds": seconds}
+
+
 def _summary(out, seconds, index=None):
     import numpy as np
     keys = ("lap_time", "lap_done", "track_violation", "max_track_violation",
@@ -84,51 +142,68 @@ def _summary(out, seconds, index=None):
     return d
 
 
-def divergence(ticks, check, nmpc=False):
+def divergence(ticks, check, nmpc=False, raceline=None, only=None):
     import numpy as np
     import torch
     import chip_smoke
+    from fsae_mpc_tpu_torch import interop
     from fsae_mpc_tpu_torch.config import MPC_F32, VehicleParams
-    from fsae_mpc_tpu_torch.ops import ipm
-    from fsae_mpc_tpu_torch.sim import SimConfig, simulate
+    from fsae_mpc_tpu_torch.sim import simulate
     from fsae_mpc_tpu_torch.track import load_track
 
+    # one intra-op thread, as chip_smoke.py's CPU laps run
+    torch.set_num_threads(1)
     x_init = chip_smoke.sim_scenarios(check)
     configs = (chip_smoke.NMPC_CONFIGS if nmpc else
-               [("ltv",) + c for c in chip_smoke.SIM_CONFIGS])
+               [chip_smoke.RACELINE_CONFIG] if raceline else
+               chip_smoke.SIM_CONFIGS)
+    if only:
+        configs = [c for c in configs if c.key in only]
+    plan = None
+    if raceline:
+        with np.load(raceline) as f:
+            plan = interop.planner_result(dict(f), device="cpu")
     out = {}
-    for mode, model, backend, preset in configs:
-        cfg = SimConfig(model=model, mode=mode, qp_backend=backend,
-                        n_ticks=ticks, mpc=MPC_F32, ipm=getattr(ipm, preset))
+    for loop in configs:
+        cfg = loop.sim_config(ticks, MPC_F32)
         xs = {}
         for dtype in (torch.float32, torch.float64):
             track, _ = load_track(TRACK, dtype=dtype, device="cpu")
             t0 = time.perf_counter()
             res = simulate(track, VehicleParams(), cfg,
-                           torch.tensor(x_init, dtype=dtype))
+                           torch.tensor(x_init, dtype=dtype), plan=plan)
             xs[dtype] = res.x_history.double().numpy()
-            print(f"{mode}/{model}/{backend}/{preset} {dtype}: "
-                  f"{time.perf_counter() - t0:.1f} s", file=sys.stderr)
+            print(f"{loop.tag} {dtype}: {time.perf_counter() - t0:.1f} s",
+                  file=sys.stderr)
         d = np.abs(xs[torch.float32] - xs[torch.float64])
-        out[f"{mode}/{model}" if nmpc else model] = {
-            "per_state": d.max((0, 1)).tolist(),
-            "per_tick": d.max((0, 2)).tolist()}
+        out[loop.key] = {"per_state": d.max((0, 1)).tolist(),
+                         "per_tick": d.max((0, 2)).tolist()}
     return out
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("what", choices=("t64", "port-lap", "divergence"))
+    ap.add_argument("what", choices=("t64", "port-lap", "plan64",
+                                     "divergence"))
     ap.add_argument("--ticks", type=int, default=20)
     ap.add_argument("--check", type=int, default=4)
     ap.add_argument("--nmpc", action="store_true")
+    ap.add_argument("--raceline", metavar="PLAN.npz")
+    ap.add_argument("--port", action="store_true")
+    ap.add_argument("--nodes", type=int, default=160)
+    ap.add_argument("--iters", type=int, default=40)
+    ap.add_argument("--threads", type=int)
+    ap.add_argument("--out", metavar="PLAN.npz")
+    ap.add_argument("--only", nargs="+", metavar="KEY")
     a = ap.parse_args()
     if a.what == "t64":
         res = t64()
     elif a.what == "port-lap":
         res = port_lap()
+    elif a.what == "plan64":
+        res = plan64(a.nodes, a.iters, a.port, a.threads, a.out)
     else:
-        res = divergence(a.ticks, a.check, a.nmpc)
+        res = divergence(a.ticks, a.check, a.nmpc, a.raceline, a.only)
     print(json.dumps(res))
     return 0
 
