@@ -127,6 +127,31 @@ Phases (any failure exits non-zero before the result lines):
                  to the schedule, K4 0, no host sync, instances 0-3
                  against the CPU's f32 laps on the same plan within
                  ``RACELINE_STATE_TOL``).
+  8. pod      -- the JAX package's pod-scale sweep (``scripts/pod_scale.py``,
+                 BASELINE config 5): fsg2019, fso2020 and fss2019 stacked
+                 into one batched track, each repeated for POD_VEHICLES
+                 perturbed vehicles (``sim.batch.perturbed_params`` from a
+                 seeded CUDA generator), B = 12,288 laps from rest at the
+                 origin, dynamic/Riccati/``F32_PRODUCTION``, N=40, POD_TICKS
+                 ticks through ``sim.checkpoint.run_chunked`` in chunks of
+                 POD_CHUNK (``closed_loop.chunk_step``, a checkpoint after
+                 each): launches equal to the schedule (K1-K3 above
+                 B=1,024 for the first time, K4 0), no host
+                 synchronisation inside a chunk, every trace and summary
+                 finite; a run resumed from chunk 0's checkpoint
+                 (``simulate_chunked``) and ``simulate`` of the same ticks
+                 equal the chunked run bitwise; one Riccati LTV tick of the
+                 batch against the same tick split over a mesh of the card
+                 repeated three times (one shard per track,
+                 ``check_shard_determinism``): the stage QPs bitwise equal,
+                 the first controls parting no further than a last-digit
+                 change of the inputs moves them (POD_QUANTILES); two
+                 instances per track against the port's CPU f32 laps of
+                 the same instances (run in a worker process beside phases
+                 3-7) within ``POD_STATE_TOL``; ms a sim tick per chunk
+                 (CUDA events), instance-ticks/s, peak device memory and
+                 the metric summary reduced over the mesh
+                 (``pmean_metrics``).
 
 The last three lines of standard output are the card's name and power
 limit, one JSON object with the kernels, and
@@ -343,6 +368,40 @@ RACELINE_F32_DIVERGENCE = {
                          6.24e-03, 1.40e-03)}
 RACELINE_STATE_TOL = {k: tuple(5.0 * v for v in (max(d[:2]),) * 2 + d[2:])
                       for k, d in RACELINE_F32_DIVERGENCE.items()}
+# phase 8, the pod-scale sweep: the JAX package's scripts/pod_scale.py at its
+# defaults (4,096 vehicles x 3 tracks fitted at 100 segments, dynamic/
+# Riccati, its "restart" preset = F32_PRODUCTION, N = 40, from rest at the
+# origin, one CUDA generator's lognormal draws of m, Iz and pD per vehicle),
+# cut in depth only: POD_TICKS ticks of its 1,000, to fit the run's time.
+POD_TRACKS = ("fsg2019", "fso2020", "fss2019")
+POD_VEHICLES, POD_TICKS, POD_CHUNK = 4096, 10, 5
+POD_CONFIG = Loop("ltv", "dynamic", "riccati", "F32_PRODUCTION")
+# the instances held to the CPU's f32 laps: the first two of each track
+POD_CHECK = tuple(k * POD_VEHICLES + j for k in range(len(POD_TRACKS))
+                  for j in (0, 1))
+# their f32-against-f64 divergence on a CPU, per plant state, as phase 4's
+# (tools/sim_reference.py divergence --pod POD.json --ticks 10, on the
+# vehicles the card drew, which chip_smoke.py writes where POD_OUT names a
+# file; one CPU thread, x86-64); the tolerance 5x that, x and y sharing
+# the larger of their two as in phase 6.
+POD_F32_DIVERGENCE = (8.95e-05, 4.75e-04, 5.44e-04, 7.25e-04, 5.64e-03,
+                      9.42e-03, 3.97e-03)
+POD_STATE_TOL = tuple(5.0 * v for v in (max(POD_F32_DIVERGENCE[:2]),) * 2
+                      + POD_F32_DIVERGENCE[2:])
+# one Riccati LTV tick of the batch against the same tick split into one
+# shard per track.  The split must not change the QPs (their build is
+# bitwise the same), but the solve cannot be held bitwise: a batched
+# matrix-vector product over the B*N stages (einsum "bnri,bni->bnr" and
+# "bnij,bnj->bni" in the IPM) gives a matrix in the last partial chunk of
+# 65,535 another result, ~1 f32 unit, than the same matrix elsewhere, so
+# the instances in those chunks differ (tools/batched_product_check.py:
+# 1,641 of 12,288 with three shards on random data, one H100 with PyTorch
+# 2.11 and CUDA 12.8), and a cold f32 IPM of 24 iterations amplifies that
+# to O(1) in its worst-conditioned instances.
+# So the shards' per-instance deviation is held, quantile by quantile over
+# the instances, to the larger of the deviations that moving every
+# instance's s0 one f32 unit up or down causes in the whole batch's tick.
+POD_QUANTILES = (0.5, 0.9, 0.99, 0.999)
 # the faults compiled into riccati.cu under -DRICCATI_PLANT=n, each of
 # which the assemble_factor (1, 2), apply_fwd (3, 4), apply_bwd (5, 6) or
 # factor (7, 8) checks must fail
@@ -1799,9 +1858,231 @@ def planner_phase(device, card):
     return plan, fields
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the pod-scale sweep
+# ---------------------------------------------------------------------------
+
+
+def pod_batch(device):
+    """The sweep's batch on the card: the stacked tracks, each repeated
+    for POD_VEHICLES instances (track-major, as ``pod_scale.py``), and one
+    perturbed vehicle per instance."""
+    import torch
+    from fsae_mpc_tpu_torch.config import VehicleParams
+    from fsae_mpc_tpu_torch.sim.batch import perturbed_params
+    from fsae_mpc_tpu_torch.track import load_track, stack_tracks
+    from fsae_mpc_tpu_torch.utils import tree
+
+    tracks = stack_tracks([load_track(
+        os.path.join(ROOT, "data", f"{name}.csv"), dtype=torch.float32,
+        device=device) for name in POD_TRACKS])
+    track = tree.map(lambda t: t.repeat_interleave(POD_VEHICLES, 0), tracks)
+    params = perturbed_params(
+        VehicleParams(), torch.Generator(device).manual_seed(SEED),
+        len(POD_TRACKS) * POD_VEHICLES, device=device)
+    return track, params
+
+
+def pod_instances(fields, dtype):
+    """The checked instances (POD_CHECK) on the CPU: each one's track
+    stacked, and its vehicle from ``fields`` (numpy (len(POD_CHECK),) per
+    ``VehicleParams`` field, the card's draws)."""
+    from fsae_mpc_tpu_torch import interop
+    from fsae_mpc_tpu_torch.track import load_track, stack_tracks
+    return (stack_tracks([load_track(
+        os.path.join(ROOT, "data", f"{POD_TRACKS[i // POD_VEHICLES]}.csv"),
+        dtype=dtype, device="cpu") for i in POD_CHECK]),
+        interop.vehicle_params(fields, dtype=dtype, device="cpu"))
+
+
+def pod_reference_laps(fields):
+    """The checked instances' laps by the port on the CPU in f32, one
+    thread: the plant states (len(POD_CHECK), POD_TICKS, 7) as numpy.  Run
+    in a worker process."""
+    import torch
+    sys.path.insert(0, ROOT)
+    from fsae_mpc_tpu_torch.config import MPC_F32
+    from fsae_mpc_tpu_torch.sim import simulate
+
+    torch.set_num_threads(1)
+    track, params = pod_instances(fields, torch.float32)
+    t0 = time.perf_counter()
+    out = simulate(track, params, POD_CONFIG.sim_config(POD_TICKS, MPC_F32),
+                   torch.zeros((len(POD_CHECK), 7), dtype=torch.float32))
+    return out.x_history.numpy(), time.perf_counter() - t0
+
+
+def pod_fields(params):
+    """The checked instances' vehicles as numpy, for the CPU's laps (and
+    as JSON to the file ``POD_OUT`` names, for the divergence tool)."""
+    import dataclasses
+    idx = list(POD_CHECK)
+    fields = {f.name: getattr(params, f.name)[idx].cpu().numpy()
+              for f in dataclasses.fields(params)}
+    if os.environ.get("POD_OUT"):
+        with open(os.environ["POD_OUT"], "w") as f:
+            json.dump({k: v.tolist() for k, v in fields.items()}, f)
+    return fields
+
+
+def pod_phase(device, card, track, params, cpu_ref):
+    """The sweep through ``checkpoint.run_chunked``, its resume and
+    ``simulate`` of the same ticks, the checked instances against the
+    CPU's laps (``cpu_ref``: the pending :func:`pod_reference_laps`),
+    the shard check and the reduced summary.  Returns the chunked run's
+    launch counts."""
+    import dataclasses
+    import tempfile
+    import torch
+    from fsae_mpc_tpu_torch.config import MPC_F32
+    from fsae_mpc_tpu_torch.models import transforms
+    from fsae_mpc_tpu_torch.mpc import ltv
+    from fsae_mpc_tpu_torch.ops import riccati
+    from fsae_mpc_tpu_torch.parallel import mesh as pm
+    from fsae_mpc_tpu_torch.sim import checkpoint, simulate
+    from fsae_mpc_tpu_torch.sim import closed_loop as cl
+    from fsae_mpc_tpu_torch.utils import debug, profiling
+
+    Bsz = track.px.shape[0]
+    tag = f"pod {len(POD_TRACKS)} x {POD_VEHICLES} {POD_CONFIG.tag}"
+    cfg = POD_CONFIG.sim_config(POD_TICKS, MPC_F32)
+    exp, iters = loop_schedule("ltv", "riccati", cfg.ipm, POD_TICKS, 1)
+    x0 = torch.zeros((Bsz, 7), dtype=torch.float32, device=device)
+    n_chunks = -(-POD_TICKS // POD_CHUNK)
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    carry0 = cl.init_chunked(track, params, cfg, x0)
+    step = profiling.Timed(cl.chunk_step(track, params, cfg, POD_CHUNK))
+    syncs = []
+
+    def chunk(carry):
+        out, sites = sync_debug(lambda: step(carry))
+        syncs.append(sites)
+        return out
+
+    with tempfile.TemporaryDirectory() as ckpt:
+        reset_launches()
+        t0 = time.perf_counter()
+        carry = checkpoint.run_chunked(chunk, carry0, n_chunks, ckpt)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = launches()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        out = cl.chunked_outputs(carry, cfg, params)
+        ckpt_mb = os.path.getsize(checkpoint.chunk_path(ckpt, 0)) / 1e6
+        restored = checkpoint.restore(checkpoint.chunk_path(ckpt, 0), carry0)
+        resumed = cl.simulate_chunked(track, params, cfg, POD_CHUNK,
+                                      carry=restored, start_tick=POD_CHUNK)
+    chunk_s = profiling.stats(step.samples)
+    tick_ms = 1e3 * chunk_s["mean"] / POD_CHUNK
+    log(f"{tag}: B={Bsz}, {POD_TICKS} ticks in {n_chunks} chunks of "
+        f"{POD_CHUNK}: {tick_ms:.2f} ms a sim tick (CUDA events over each "
+        f"chunk; per chunk mean {1e3 * chunk_s['mean']:.1f}, median "
+        f"{1e3 * chunk_s['median']:.1f}, max {1e3 * chunk_s['max']:.1f} ms"
+        f"), {Bsz * 1e3 / tick_ms:.1f} instance-ticks/s, peak device "
+        f"memory {peak_gb:.3f} GB, wall {wall:.1f} s with the checkpoints "
+        f"({ckpt_mb:.1f} MB each)  ({card})")
+    log(f"{tag}: launches {got}, schedule {exp} (per tick "
+        f"{ {k: v // POD_TICKS for k, v in exp.items() if v} })")
+    check(got == exp, f"{tag}: launches {got} != schedule {exp}")
+    log(f"{tag}: host syncs inside each chunk {[len(s) for s in syncs]} "
+        f"{sorted({x for s in syncs for x in s})[:8]}")
+    check(not any(syncs), f"{tag}: a chunk synchronises with the host")
+    fields = [f.name for f in dataclasses.fields(out)]
+    summaries = fields[fields.index("lap_time"):]
+    bad_inst = ~torch.isfinite(out.x_history).all(2).all(1)
+    log(f"{tag}: instances with a non-finite plant trace "
+        f"{int(bad_inst.sum())} of {Bsz}; lap done "
+        f"{int(out.lap_done.sum())}, plant speed at the end "
+        f"{float(out.x_history[:, -1, 3].mean()):.3f} m/s, abnormal exits "
+        f"{float(out.abnormal_exit_frac.mean()):.3f}")
+    try:
+        debug.assert_finite({f: getattr(out, f) for f in fields},
+                            f"{tag} outputs")
+    except FloatingPointError as e:
+        raise Fail(str(e)) from None
+
+    # the resumed run and simulate of the same ticks, field by field
+    whole, sim_syncs = sync_debug(lambda: simulate(track, params, cfg, x0))
+    check(not sim_syncs, f"{tag}: simulate synchronises with the host")
+    for name, other in (("resumed from chunk 0", resumed),
+                        ("simulate", whole)):
+        diff = {f: float((getattr(other, f).double()
+                          - getattr(out, f).double()).abs().max())
+                for f in fields}
+        same = all(torch.equal(getattr(other, f), getattr(out, f))
+                   for f in fields)
+        log(f"{tag}: {name} against the chunked run: "
+            f"{'bitwise equal' if same else 'differs'}, max |d| "
+            f"{max(diff.values()):.3e} ({max(diff, key=diff.get)})")
+        check(same, f"{tag}: {name} differs from the chunked run: {diff}")
+
+    # the checked instances against the CPU's f32 laps
+    t0 = time.perf_counter()
+    ref_x, cpu_s = cpu_ref.get()
+    wait = time.perf_counter() - t0
+    d = (out.x_history[list(POD_CHECK)].cpu().double()
+         - torch.from_numpy(ref_x).double()).abs().amax((0, 1))
+    log(f"{tag}: instances {list(POD_CHECK)} card vs CPU f32, max |dx| per "
+        f"state {[f'{v:.2e}' for v in d.tolist()]}, tol "
+        f"{[f'{v:.2e}' for v in POD_STATE_TOL]} (CPU run {cpu_s:.1f} s; "
+        f"waited {wait:.1f} s for it)")
+    check(all(a <= b for a, b in zip(d.tolist(), POD_STATE_TOL)),
+          f"{tag}: card and CPU laps differ beyond the tolerance")
+
+    # one shard per track, on the one card: a cold Riccati LTV tick
+    # (ltv_mpc_dynamic's build and solve) of phase 3's states
+    mesh = pm.make_mesh(devices=[device] * len(POD_TRACKS))
+    xc, xl, ul = initial_batch(Bsz, MPC_F32, torch.float32, device)
+
+    def tick(a, r, xlin, ulin, tr, pr):
+        qp = ltv.build_stage_qp_dynamic(a, r, tr, pr, MPC_F32, xlin, ulin)[0]
+        return {"qp": qp, "u": riccati.solve_stage_qp(qp, cfg.ipm).u}
+
+    args = (xc, reference(xc, MPC_F32), xl, ul, track, params)
+    dev = debug.check_shard_determinism(tick, args, mesh)
+    qp_dev = max(float(getattr(dev["qp"], f.name).max())
+                 for f in dataclasses.fields(dev["qp"]))
+    u0 = tick(*args)["u"]
+    ulp = []
+    for toward in (float("inf"), -float("inf")):
+        xp = xc.clone()
+        xp[:, 0] = torch.nextafter(xp[:, 0], torch.full_like(xp[:, 0],
+                                                             toward))
+        ulp.append((tick(xp, *args[1:])["u"] - u0).abs().amax((1, 2)))
+    ulp = torch.maximum(*ulp).double()
+    qs = torch.tensor(POD_QUANTILES, dtype=torch.float64, device=device)
+    q_sh, q_ulp = torch.quantile(dev["u"], qs), torch.quantile(ulp, qs)
+    log(f"{tag}: one cold Riccati LTV tick of the batch against "
+        f"{len(mesh)} shards on {device}: stage QPs max |d| {qp_dev:.3e}; "
+        f"first controls per instance |du| at quantiles {POD_QUANTILES} "
+        f"{[f'{v:.2e}' for v in q_sh.tolist()]}, max "
+        f"{float(dev['u'].max()):.3e}, bitwise "
+        f"{int((dev['u'] == 0).sum())} of {Bsz}; s0 one f32 unit up or "
+        f"down {[f'{v:.2e}' for v in q_ulp.tolist()]}, max "
+        f"{float(ulp.max()):.3e}")
+    check(qp_dev == 0.0, f"{tag}: the shards' QPs differ from the batch's")
+    check(bool((q_sh <= q_ulp).all()), f"{tag}: the shards' controls part "
+          "further than a last-digit change of the inputs moves them")
+
+    # the metric summary, reduced over the mesh
+    xe = out.x_history[:, -1]
+    s_end, _, _ = transforms.cartesian_to_curvilinear(
+        xe[:, 0], xe[:, 1], xe[:, 2], track, carry.state[1][:, 0, 0])
+    summary = pm.pmean_metrics({
+        "lap_progress": s_end / track.L,
+        "track_violation": out.track_violation,
+        "converged_share": out.converged.float().mean(1),
+        "lap_done": out.lap_done}, mesh)
+    log(f"{tag}: mean over the mesh " + json.dumps(
+        {k: float(v) for k, v in summary.items()}) + f"  ({card})")
+    return {k: v for k, v in got.items() if v}
+
+
 def kernel_line(kres, paths):
     """The ``kernels`` JSON object: every kernel with its launches on the
-    paths' runs (phases 3-7, summed), its parity and its times (at the
+    paths' runs (phases 3-8, summed), its parity and its times (at the
     main path's shapes) beside its bound."""
     out = []
     for source, mod in kernel_modules().items():
@@ -1870,13 +2151,16 @@ def main() -> int:
         # phase 7's plan first: the CPU's laps on it then run beside
         # phases 3-6
         plan, plan_np = planner_phase(device, card)
-        # phase 6's and 7's CPU laps (minutes on one core each) run in
-        # worker processes beside phases 3-5 on the card
+        pod_track, pod_params = pod_batch(device)
+        # phase 6's, 7's and 8's CPU laps (minutes on one core each) run
+        # in worker processes beside phases 3-5 on the card
         cpu_pool = multiprocessing.get_context("spawn").Pool(
-            len(NMPC_CONFIGS) + 1)
+            len(NMPC_CONFIGS) + 2)
         nmpc_refs = start_cpu_references(cpu_pool, NMPC_CONFIGS, NMPC_TICKS)
         raceline_refs = start_cpu_references(
             cpu_pool, [RACELINE_CONFIG], RACELINE_TICKS, plan_np)
+        pod_ref = cpu_pool.apply_async(pod_reference_laps,
+                                       (pod_fields(pod_params),))
         paths, outs = [], {}
         for backend in ("riccati", "dense"):
             outs[backend], counts = main_path(backend, model, device, card,
@@ -1898,6 +2182,7 @@ def main() -> int:
             "raceline", [RACELINE_CONFIG], RACELINE_TICKS,
             RACELINE_STATE_TOL, model, device, card, kres, raceline_refs,
             plan=plan))
+        paths.append(pod_phase(device, card, pod_track, pod_params, pod_ref))
         line = kernel_line(kres, paths)
     except Fail as e:
         log(f"FAIL: {e}")

@@ -1,36 +1,47 @@
 """Central configuration dataclasses (PyTorch port of ``fsae_mpc_tpu.config``).
 
-Plain frozen dataclasses of Python floats: the vehicle and MPC constants
-enter the models as scalars, so no tensor state lives here.  Field names,
-defaults and the ``MPC_F32`` profile are the JAX package's.
+Frozen dataclasses.  The MPC and PID constants are Python numbers.  A
+vehicle's constants are Python floats, shared by every instance of a
+batch, or (B,) tensors, one value per instance (a scenario sweep of
+perturbed vehicles, ``sim.batch.perturbed_params``), field by field, as
+the JAX package's pytree dataclass holds them.  Field names, defaults and
+the ``MPC_F32`` profile are the JAX package's.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Any
+
+import torch
 
 
 @dataclasses.dataclass(frozen=True)
 class VehicleParams:
-    """Vehicle + tyre constants (``fsae_mpc_tpu.config.VehicleParams``)."""
+    """Vehicle + tyre constants (``fsae_mpc_tpu.config.VehicleParams``).
 
-    m: float = 280.0        # mass [kg]
-    Iz: float = 200.0       # yaw inertia [kg m^2]
-    lr: float = 0.6183      # CoG -> rear axle [m]
-    lf: float = 0.8672      # CoG -> front axle [m]
-    g: float = 9.81
+    Each field is a float, shared by a batch, or a (B,) tensor on the
+    batch's device, one value per instance.  The per-instance models read
+    them inside ``torch.func.vmap`` (``models.instances``); code over a
+    batch broadcasts a (B,) field against its (B, ...) tensors."""
+
+    m: Any = 280.0        # mass [kg]
+    Iz: Any = 200.0       # yaw inertia [kg m^2]
+    lr: Any = 0.6183      # CoG -> rear axle [m]
+    lf: Any = 0.8672      # CoG -> front axle [m]
+    g: Any = 9.81
     # Pacejka magic-formula coefficients
-    pB: float = 12.56
-    pC: float = 1.38
-    pD: float = 1.60
-    pE: float = -0.58
+    pB: Any = 12.56
+    pC: Any = 1.38
+    pD: Any = 1.60
+    pE: Any = -0.58
     # friction-ellipse semi-axes (lateral accel, longitudinal accel)
-    ac_max: float = 9.163
-    al_max: float = 10.0
+    ac_max: Any = 9.163
+    al_max: Any = 10.0
     # low-speed softening scale: x_d_hat = x_d + v_soft * exp(-x_d / v_soft)
-    v_soft: float = 5.0
+    v_soft: Any = 5.0
     # cartesian-plant slip-angle regulariser
-    v_eps: float = 0.01
+    v_eps: Any = 0.01
 
     @property
     def wheelbase(self):
@@ -39,6 +50,13 @@ class VehicleParams:
     @property
     def lr_ratio(self):
         return self.lr / (self.lr + self.lf)
+
+    def instance_dims(self) -> tuple:
+        """Per field, in field order: 0 where it holds one value per
+        instance (a (B,) tensor), None where the batch shares it."""
+        return tuple(0 if torch.is_tensor(v) and v.ndim else None
+                     for v in (getattr(self, f.name)
+                               for f in dataclasses.fields(self)))
 
 
 @dataclasses.dataclass(frozen=True)

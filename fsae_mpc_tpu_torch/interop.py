@@ -50,13 +50,20 @@ def _fields(cls, src: Mapping, dtype, device):
 
 
 def track(px, py, dl, L, dtype=None, device="cuda") -> Track:
-    """Track coefficients ``(px (M, 4), py (M, 4), dl, L)``."""
+    """Track coefficients ``(px (M, 4), py (M, 4), dl, L)``, or a stacked
+    batch of tracks (px, py (B, M, 4), dl and L (B,))."""
     return Track(px=_tensor(px, dtype, device), py=_tensor(py, dtype, device),
                  dl=_tensor(dl, dtype, device), L=_tensor(L, dtype, device))
 
 
-def vehicle_params(src: Mapping) -> VehicleParams:
-    return VehicleParams(**{f.name: float(np.asarray(src[f.name]))
+def vehicle_params(src: Mapping, dtype=None, device="cuda") -> VehicleParams:
+    """Vehicle parameters: a 0-d field as a Python float (shared by the
+    batch), a (B,) field (``perturbed_params``) as a tensor."""
+    def field(a):
+        a = np.asarray(a)
+        return float(a) if a.ndim == 0 else _tensor(a, dtype, device)
+
+    return VehicleParams(**{f.name: field(src[f.name])
                             for f in dataclasses.fields(VehicleParams)})
 
 

@@ -4,14 +4,16 @@
 ``linearize_discrete`` differentiates the discrete step with
 ``torch.func.jacfwd`` and batches it with ``torch.func.vmap`` over every
 leading dimension of the trajectory, so a (B, N, nx) batch of horizons is
-linearised in one call.
+linearised in one call; per-instance data (vehicle parameters, tracks)
+enters as mapped arguments (``models.instances``).
 """
 
 from __future__ import annotations
 
-from torch.func import jacfwd, vmap
+from torch.func import jacfwd
 
 from ..ops.precision import highest as _highest_precision
+from .instances import vmap_instances
 
 
 def euler_step(f, x, u, dt):
@@ -57,24 +59,32 @@ STEPPERS = {"euler": euler_step, "rk2": rk2_step, "rk4": rk4_step,
             "rk6": rk6_step}
 
 
+def discrete_step(f, stepper: str, dt):
+    """The per-instance step ``step(x, u, *data)`` of ``STEPPERS[stepper]``
+    on the ODE ``f(x, u, *data)`` (``data``: e.g. the track and the
+    vehicle parameters)."""
+    rk = STEPPERS[stepper]
+    return lambda x, u, *data: rk(lambda xx, uu: f(xx, uu, *data), x, u, dt)
+
+
 @_highest_precision
-def linearize_discrete(step, x_traj, u_traj):
-    """Linearise ``step(x, u) -> x_next`` along a trajectory.
+def linearize_discrete(step, x_traj, u_traj, data=()):
+    """Linearise ``step(x, u, *data) -> x_next`` along a trajectory.
 
     ``x_traj (..., nx)``, ``u_traj (..., nu)`` with any leading dimensions
-    (a batch of horizons is ``(B, N, ...)``).  Returns ``(Ad, Bd, dd)``
-    with ``x_{k+1} ~= Ad x_k + Bd u_k + dd``.
+    (a batch of horizons is ``(B, N, ...)``); ``data``: the step's
+    per-instance data, mapped over the first of them where it holds one
+    value per instance.  Returns ``(Ad, Bd, dd)`` with
+    ``x_{k+1} ~= Ad x_k + Bd u_k + dd``.
     """
-    def one(x, u):
+    def one(x, u, *d):
+        st = lambda xx, uu: step(xx, uu, *d)
         # torch.func's forward mode promotes a 0-d tensor times a Python
         # float to float64 in the tangents; the Jacobians come back in the
         # trajectory's dtype
-        Ad = jacfwd(step, argnums=0)(x, u).to(x.dtype)
-        Bd = jacfwd(step, argnums=1)(x, u).to(x.dtype)
-        dd = step(x, u).to(x.dtype) - Ad @ x - Bd @ u
+        Ad = jacfwd(st, argnums=0)(x, u).to(x.dtype)
+        Bd = jacfwd(st, argnums=1)(x, u).to(x.dtype)
+        dd = st(x, u).to(x.dtype) - Ad @ x - Bd @ u
         return Ad, Bd, dd
 
-    fn = one
-    for _ in range(x_traj.ndim - 1):
-        fn = vmap(fn)
-    return fn(x_traj, u_traj)
+    return vmap_instances(one, (x_traj, u_traj), x_traj.ndim - 1, data)

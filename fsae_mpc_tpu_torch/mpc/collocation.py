@@ -30,10 +30,11 @@ from __future__ import annotations
 
 import numpy as np
 import torch
-from torch.func import jacfwd, vmap
+from torch.func import jacfwd
 
 from ..config import MPCParams, VehicleParams
 from ..models import curvilinear as cm
+from ..models.instances import vmap_instances
 from ..ops import ipm
 from ..ops import riccati
 from ..ops.condense import condense_general
@@ -45,30 +46,29 @@ from .sqp import SqpResult, _check_backend, run_sqp
 
 
 @_highest_precision
-def _linearize_continuous(f, x_pts, u_pts):
-    """The ODE and its Jacobians A = df/dx, B = df/du at every point of
-    ``x_pts`` (..., nx), ``u_pts`` (..., nu).  The tangents come back in
-    the points' dtype (``torch.func``'s forward mode promotes a 0-d tensor
-    times a Python float to float64)."""
-    def one(x, u):
-        return (f(x, u).to(x.dtype), jacfwd(f, argnums=0)(x, u).to(x.dtype),
-                jacfwd(f, argnums=1)(x, u).to(x.dtype))
+def _linearize_continuous(f, x_pts, u_pts, data=()):
+    """The ODE ``f(x, u, *data)`` and its Jacobians A = df/dx, B = df/du
+    at every point of ``x_pts`` (..., nx), ``u_pts`` (..., nu) (``data``
+    mapped with the batch where it is per instance).  The tangents come
+    back in the points' dtype (``torch.func``'s forward mode promotes a
+    0-d tensor times a Python float to float64)."""
+    def one(x, u, *d):
+        fd = lambda xx, uu: f(xx, uu, *d)
+        return (fd(x, u).to(x.dtype), jacfwd(fd, argnums=0)(x, u).to(x.dtype),
+                jacfwd(fd, argnums=1)(x, u).to(x.dtype))
 
-    fn = one
-    for _ in range(x_pts.ndim - 1):
-        fn = vmap(fn)
-    return fn(x_pts, u_pts)
+    return vmap_instances(one, (x_pts, u_pts), x_pts.ndim - 1, data)
 
 
 @_highest_precision
-def _trapezoidal_stages(f, x_pts, u_pts, dt):
+def _trapezoidal_stages(f, x_pts, u_pts, dt, data=()):
     """The linearised trapezoidal recurrence in absolute coordinates.
 
     ``x_pts`` (B, N+1, nx): the iterate including the fixed initial
     point; ``u_pts`` (B, N+1, nu).  Returns (Ad, Ba, Bb, dd), each
     (B, N, ...), with x_{i+1} = Ad_i x_i + Ba_i u_i + Bb_i u_{i+1} + dd_i.
     """
-    fv, Av, Bv = _linearize_continuous(f, x_pts, u_pts)
+    fv, Av, Bv = _linearize_continuous(f, x_pts, u_pts, data)
     nx = x_pts.shape[-1]
     I = torch.eye(nx, dtype=x_pts.dtype, device=x_pts.device)
     A_i, A_n = Av[:, :-1], Av[:, 1:]
@@ -224,10 +224,11 @@ def _roll_states(x0, Ad, Ba, Bb, dd, u):
     return torch.stack(xs, 1)
 
 
-def _trapezoidal_nmpc(x0, x_ref, f, nx, groups_of, fr_group_of, r_soft,
-                      u_lb, u_ub, mpc, x_init, u_init, opts, sqp_iters, warm,
-                      backend, trust_u=None):
-    """The trapezoidal SQP of both models.  ``groups_of(x_in, u_in)``: the
+def _trapezoidal_nmpc(x0, x_ref, f, data, nx, groups_of, fr_group_of,
+                      r_soft, u_lb, u_ub, mpc, x_init, u_init, opts,
+                      sqp_iters, warm, backend, trust_u=None):
+    """The trapezoidal SQP of both models on the ODE ``f(x, u, *data)``.
+    ``groups_of(x_in, u_in)``: the
     x-only groups at points 1..N; ``fr_group_of(x_pts, u_pts)``: the
     group at points 0..N, or None."""
     _check_backend(backend)
@@ -239,7 +240,8 @@ def _trapezoidal_nmpc(x0, x_ref, f, nx, groups_of, fr_group_of, r_soft,
     def sqp_iter(carry, qp_warm):
         x_pts, u_pts = carry
         x_pts = torch.cat([x0[:, None], x_pts[:, 1:]], 1)
-        Ad, Ba, Bb, dd = _trapezoidal_stages(f, x_pts, u_pts, mpc.dt)
+        Ad, Ba, Bb, dd = _trapezoidal_stages(f, x_pts, u_pts, mpc.dt,
+                                             data)
         groups = groups_of(x_pts[:, 1:], u_pts[:, 1:])
         fr_group = fr_group_of(x_pts, u_pts)
         lb, ub = u_lb, u_ub
@@ -297,14 +299,14 @@ def trapezoidal_nmpc_kinematic(x0, x_ref, track, params: VehicleParams,
     """
     N = mpc.n_steps
     Bsz, dtype, dev = x0.shape[0], x_init.dtype, x_init.device
-    f = lambda x, u: cm.f_curv_kin(x, u, track, params)
     u_lb = _const([-mpc.a_max, -mpc.delta_d_max], dtype,
                   dev).repeat(Bsz, N + 1, 1)
     groups_of = lambda x_in, u_in: _track_groups([3, 4], x_in, u_in, mpc) + [
         cons.kinematic_tyre_group(x_in, u_in, mpc, params, slack=0)]
-    return _trapezoidal_nmpc(x0, x_ref, f, 5, groups_of, lambda x, u: None,
-                             [mpc.w_track], u_lb, -u_lb, mpc, x_init,
-                             u_init, opts, sqp_iters, warm, backend)
+    return _trapezoidal_nmpc(x0, x_ref, cm.f_curv_kin, (track, params), 5,
+                             groups_of, lambda x, u: None, [mpc.w_track],
+                             u_lb, -u_lb, mpc, x_init, u_init, opts,
+                             sqp_iters, warm, backend)
 
 
 def trapezoidal_nmpc_dynamic(x0, x_ref, track, params: VehicleParams,
@@ -321,7 +323,6 @@ def trapezoidal_nmpc_dynamic(x0, x_ref, track, params: VehicleParams,
     """
     N = mpc.n_steps
     Bsz, dtype, dev = x0.shape[0], x_init.dtype, x_init.device
-    f = lambda x, u: cm.f_curv_dyn_only(x, u, track, params)
     u_lb = _const([-np.inf, -mpc.delta_d_max], dtype,
                   dev).repeat(Bsz, N + 1, 1)
     u_ub = _const([np.inf, mpc.delta_d_max], dtype, dev).repeat(Bsz, N + 1,
@@ -332,7 +333,8 @@ def trapezoidal_nmpc_dynamic(x0, x_ref, track, params: VehicleParams,
     fr_group_of = lambda x_pts, u_pts: cons.friction_ellipse_group(
         x_pts, u_pts, mpc, params, slack=1, state_rows=fr_rows,
         ctrl_cols=fr_cols)
-    return _trapezoidal_nmpc(x0, x_ref, f, 7, groups_of, fr_group_of,
+    return _trapezoidal_nmpc(x0, x_ref, cm.f_curv_dyn_only, (track, params),
+                             7, groups_of, fr_group_of,
                              [mpc.w_track, mpc.w_slip], u_lb, u_ub, mpc,
                              x_init, u_init, opts, sqp_iters, warm, backend,
                              trust_u=trust_u)
@@ -344,7 +346,7 @@ def _mv(a, v):
 
 
 @_highest_precision
-def _hs_stages(f, x_knots, x_mids, u_pts, dt):
+def _hs_stages(f, x_knots, x_mids, u_pts, dt, data=()):
     """The linearised Hermite-Simpson interval maps in absolute
     coordinates.
 
@@ -363,8 +365,8 @@ def _hs_stages(f, x_knots, x_mids, u_pts, dt):
     u_kn = u_pts[:, 0::2]                       # (B, N+1, nu) at the knots
     u_md = u_pts[:, 1::2]                       # (B, N, nu) at the midpoints
 
-    fk, Ak, Bk = _linearize_continuous(f, x_knots, u_kn)
-    fm, Am, Bm = _linearize_continuous(f, x_mids, u_md)
+    fk, Ak, Bk = _linearize_continuous(f, x_knots, u_kn, data)
+    fm, Am, Bm = _linearize_continuous(f, x_mids, u_md, data)
     A_p, A_q = Ak[:, :-1], Ak[:, 1:]
     B_p, B_q = Bk[:, :-1], Bk[:, 1:]
     f_p, f_q = fk[:, :-1], fk[:, 1:]
@@ -450,7 +452,7 @@ def hs_nmpc_kinematic(x0, x_ref, track, params: VehicleParams,
     nx, nu = 5, 2
     NC = 2 * N + 1
     NCnu = NC * nu
-    f = lambda x, u: cm.f_curv_kin(x, u, track, params)
+    data = (track, params)
     q_diag, r_diag = _hs_weights(mpc, nx, N, dtype, dev)
 
     # references at points 1..2N: each midpoint's between its knots
@@ -464,7 +466,8 @@ def hs_nmpc_kinematic(x0, x_ref, track, params: VehicleParams,
         x_pts, u_pts = carry
         x_pts = torch.cat([x0[:, None], x_pts[:, 1:]], 1)
         (Ad, B0, B1, B2, dd), (Pm, Qm, Bm0, Bm2, dm) = _hs_stages(
-            f, x_pts[:, 0::2], x_pts[:, 1::2], u_pts, mpc.dt)
+            cm.f_curv_kin, x_pts[:, 0::2], x_pts[:, 1::2], u_pts, mpc.dt,
+            data)
 
         # the knot chain condensed with its (u_2i, u_2i+1, u_2i+2) coupling
         A_bar, B_bar, d_bar = condense_general(
@@ -506,12 +509,12 @@ def hs_nmpc_kinematic(x0, x_ref, track, params: VehicleParams,
                      qp=last[2])
 
 
-def hs_shift_trajectory(x_opt, u_opt, step_half_fn):
+def hs_shift_trajectory(x_opt, u_opt, step_half_fn, data=()):
     """The warm-start shift of a batch on the Hermite-Simpson grid: a
     tick advances one knot, two points, so the first two points go and
     the tail grows by two half-steps of ``step_half_fn`` (per instance:
-    ``x`` (nx,), ``u`` (nu,)) under the last control."""
-    step = vmap(step_half_fn)
+    ``x`` (nx,), ``u`` (nu,), then ``*data``) under the last control."""
+    step = lambda x, u: vmap_instances(step_half_fn, (x, u), 1, data)
     x_a = step(x_opt[:, -1], u_opt[:, -1])
     x_b = step(x_a, u_opt[:, -1])
     return (torch.cat([x_opt[:, 2:], x_a[:, None], x_b[:, None]], 1),

@@ -357,9 +357,9 @@ def _linearise(model: str, track, params: VehicleParams, mpc: MPCParams,
     f_curv, groups_of, r_soft = _MODELS[model]
     dtype, dev = x_lin.dtype, x_lin.device
     Bsz, nx = x_lin.shape[0], x_lin.shape[-1]
-    f = lambda x, u: f_curv(x, u, track, params)
-    step = lambda x, u: integrators.STEPPERS[stepper](f, x, u, mpc.dt)
-    Ad, Bd, dd = integrators.linearize_discrete(step, x_lin, u_lin)
+    Ad, Bd, dd = integrators.linearize_discrete(
+        integrators.discrete_step(f_curv, stepper, mpc.dt), x_lin, u_lin,
+        (track, params))
     q = _const([mpc.q_s, mpc.q_n, mpc.q_mu] + [0.0] * (nx - 3), dtype, dev)
     r_ab = _const([mpc.r_a, mpc.r_delta_d], dtype, dev)
     groups = groups_of(x_lin, u_lin, mpc, params)

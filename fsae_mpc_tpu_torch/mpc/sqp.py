@@ -22,11 +22,11 @@ import dataclasses
 
 import numpy as np
 import torch
-from torch.func import vmap
 
 from ..config import MPCParams, VehicleParams
 from ..models import curvilinear as cm
 from ..models import integrators
+from ..models.instances import vmap_instances
 from ..ops import ipm
 from ..ops import riccati
 from ..ops.condense import rollout
@@ -59,11 +59,11 @@ def run_sqp(sqp_iter, x_init, u_init, sqp_iters: int, warm):
     return carry[0], carry[1], out
 
 
-def shift_trajectory(x_opt, u_opt, step_fn):
+def shift_trajectory(x_opt, u_opt, step_fn, data=()):
     """Warm-start shift of a batch: drop the first stage, roll the last
     stage forward one step of ``step_fn`` (per instance: ``x`` (nx,),
-    ``u`` (nu,))."""
-    x_last = vmap(step_fn)(x_opt[:, -1], u_opt[:, -1])
+    ``u`` (nu,), then ``*data``, mapped where it is per instance)."""
+    x_last = vmap_instances(step_fn, (x_opt[:, -1], u_opt[:, -1]), 1, data)
     return (torch.cat([x_opt[:, 1:], x_last[:, None]], 1),
             torch.cat([u_opt[:, 1:], u_opt[:, -1:]], 1))
 
@@ -121,18 +121,19 @@ def _check_backend(backend: str) -> None:
         raise ValueError(f"unknown backend={backend!r}")
 
 
-def _ms_nmpc(x0, x_ref, f, nx, groups_of, r_soft, u_lb, u_ub, mpc, x_init,
-             u_init, opts, stepper, sqp_iters, warm, backend, trust_u=None,
-             align=None):
-    """The multiple-shooting SQP of both models: the step is linearised
-    at its ORIGIN state (``x_pre``), so the defects carry no fixed-point
-    bias; ``groups_of(x_lin, u_lin, x_pre)`` gives the constraint groups;
-    ``align``: the index of a pre-step group that the Riccati backend
-    re-expresses on the stage's post-state."""
+def _ms_nmpc(x0, x_ref, f, data, nx, groups_of, r_soft, u_lb, u_ub, mpc,
+             x_init, u_init, opts, stepper, sqp_iters, warm, backend,
+             trust_u=None, align=None):
+    """The multiple-shooting SQP of both models on the ODE ``f(x, u,
+    *data)``: the step is linearised at its ORIGIN state (``x_pre``), so
+    the defects carry no fixed-point bias; ``groups_of(x_lin, u_lin,
+    x_pre)`` gives the constraint groups; ``align``: the index of a
+    pre-step group that the Riccati backend re-expresses on the stage's
+    post-state."""
     _check_backend(backend)
     N = mpc.n_steps
     dtype, dev = x_init.dtype, x_init.device
-    step = lambda x, u: integrators.STEPPERS[stepper](f, x, u, mpc.dt)
+    step = integrators.discrete_step(f, stepper, mpc.dt)
     q_diag, r_diag = _nmpc_weights(mpc, nx, N, dtype, dev)
     q_vec, r_ab = q_diag[:nx], r_diag[:2]
     tr = None if trust_u is None else _const(trust_u, dtype, dev)
@@ -140,7 +141,8 @@ def _ms_nmpc(x0, x_ref, f, nx, groups_of, r_soft, u_lb, u_ub, mpc, x_init,
     def sqp_iter(carry, qp_warm):
         x_lin, u_lin = carry
         x_pre = torch.cat([x0[:, None], x_lin[:, :-1]], 1)
-        Ad, Bd, dd = integrators.linearize_discrete(step, x_pre, u_lin)
+        Ad, Bd, dd = integrators.linearize_discrete(step, x_pre, u_lin,
+                                                    data)
         groups = groups_of(x_lin, u_lin, x_pre)
         lb, ub = u_lb, u_ub
         if tr is not None:
@@ -187,7 +189,6 @@ def ms_nmpc_kinematic(x0, x_ref, track, params: VehicleParams,
     trajectory (:func:`shift_trajectory` across ticks).  The rows are
     stage-aligned, so both backends solve the same subproblem.
     """
-    f = lambda x, u: cm.f_curv_kin(x, u, track, params)
     u_lb, u_ub = _control_bounds(mpc, x0.shape[0], mpc.n_steps,
                                  x_init.dtype, x_init.device)
 
@@ -202,9 +203,9 @@ def ms_nmpc_kinematic(x0, x_ref, track, params: VehicleParams,
             cons.kinematic_tyre_group(x_lin, u_lin, mpc, params, slack=0),
         ]
 
-    return _ms_nmpc(x0, x_ref, f, 5, groups_of, [mpc.w_track], u_lb, u_ub,
-                    mpc, x_init, u_init, opts, stepper, sqp_iters, warm,
-                    backend)
+    return _ms_nmpc(x0, x_ref, cm.f_curv_kin, (track, params), 5, groups_of,
+                    [mpc.w_track], u_lb, u_ub, mpc, x_init, u_init, opts,
+                    stepper, sqp_iters, warm, backend)
 
 
 def ms_nmpc_dynamic(x0, x_ref, track, params: VehicleParams,
@@ -226,7 +227,6 @@ def ms_nmpc_dynamic(x0, x_ref, track, params: VehicleParams,
     """
     N = mpc.n_steps
     Bsz, dtype, dev = x0.shape[0], x_init.dtype, x_init.device
-    f = lambda x, u: cm.f_curv_dyn_only(x, u, track, params)
     u_lb = _const([-np.inf, -mpc.delta_d_max], dtype, dev).repeat(Bsz, N, 1)
     u_ub = _const([np.inf, mpc.delta_d_max], dtype, dev).repeat(Bsz, N, 1)
     pre_rows = np.concatenate([[-1], np.arange(N - 1)])
@@ -243,6 +243,7 @@ def ms_nmpc_dynamic(x0, x_ref, track, params: VehicleParams,
                                         state_rows=pre_rows),
         ]
 
-    return _ms_nmpc(x0, x_ref, f, 7, groups_of, [mpc.w_track, mpc.w_slip],
-                    u_lb, u_ub, mpc, x_init, u_init, opts, stepper,
-                    sqp_iters, warm, backend, trust_u=trust_u, align=2)
+    return _ms_nmpc(x0, x_ref, cm.f_curv_dyn_only, (track, params), 7,
+                    groups_of, [mpc.w_track, mpc.w_slip], u_lb, u_ub, mpc,
+                    x_init, u_init, opts, stepper, sqp_iters, warm, backend,
+                    trust_u=trust_u, align=2)

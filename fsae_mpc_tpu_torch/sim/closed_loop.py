@@ -16,8 +16,12 @@ the lap metrics are an end-to-end check.  An instance whose lap is done
 (``s >= L``) keeps its state from then on; the others run on.  Every
 tensor lives on the track's device: on the card, :func:`simulate` is a
 fixed sequence of device work with no host synchronisation (the f32
-presets are non-adaptive), and :func:`simulate_timed` steps from the host
-and times each tick.
+presets are non-adaptive), :func:`simulate_chunked` runs the same ticks
+in chunks whose carry can be checkpointed between them
+(``sim.checkpoint``), and :func:`simulate_timed` steps from the host and
+times each tick.  The vehicle parameters and the track may be per
+instance (a ``VehicleParams`` of (B,) tensors, a batched ``Track``:
+``sim.batch``).
 
 Modes: ``"ltv"``, ``"ms-nmpc"`` (multiple shooting, ``stepper`` euler,
 rk2 or rk4) and ``"c-nmpc"`` with the trapezoidal transcription, each
@@ -42,6 +46,7 @@ from ..models import integrators, pid, transforms
 from ..mpc import collocation, ltv, sqp
 from ..ops import ipm, riccati
 from ..planner.reference import obtain_reference
+from . import checkpoint
 
 
 @dataclasses.dataclass(frozen=True)
@@ -244,15 +249,15 @@ def _solver(track, params: VehicleParams, cfg: SimConfig):
             x0, x_ref, track, params, mpc, x_opt, u_opt, opts, warm=warm,
             backend=backend)
     f_curv = cm.f_curv_kin if kinematic else cm.f_curv_dyn_only
-    f = lambda x, u: f_curv(x, u, track, params)
-    step = lambda x, u: integrators.rk2_step(f, x, u, mpc.dt)
+    data = (track, params)
+    step = integrators.discrete_step(f_curv, "rk2", mpc.dt)
     if cfg.mode == "c-nmpc" and cfg.transcription == "hs":
-        half = lambda x, u: integrators.rk2_step(f, x, u, mpc.dt / 2.0)
+        half = integrators.discrete_step(f_curv, "rk2", mpc.dt / 2.0)
         return lambda x0, x_ref, x_opt, u_opt, warm: (
             collocation.hs_nmpc_kinematic(
                 x0, x_ref, track, params, mpc,
-                *collocation.hs_shift_trajectory(x_opt, u_opt, half), opts,
-                sqp_iters=cfg.sqp_iters))
+                *collocation.hs_shift_trajectory(x_opt, u_opt, half, data),
+                opts, sqp_iters=cfg.sqp_iters))
     if cfg.mode == "ms-nmpc":
         base = sqp.ms_nmpc_kinematic if kinematic else sqp.ms_nmpc_dynamic
         kw = dict(stepper=cfg.stepper)
@@ -262,7 +267,7 @@ def _solver(track, params: VehicleParams, cfg: SimConfig):
         kw = {}
     return lambda x0, x_ref, x_opt, u_opt, warm: base(
         x0, x_ref, track, params, mpc,
-        *sqp.shift_trajectory(x_opt, u_opt, step), opts,
+        *sqp.shift_trajectory(x_opt, u_opt, step, data), opts,
         sqp_iters=cfg.sqp_iters, backend=backend, **kw)
 
 
@@ -289,6 +294,9 @@ def _build_tick(track, params: VehicleParams, cfg: SimConfig, x_init,
     if cfg.reference == "raceline" and plan is None:
         raise ValueError('reference="raceline" tracks a plan: pass '
                          "plan=minimum_time_planner_dynamic(...)")
+    if cfg.reference == "raceline" and track.batched:
+        raise ValueError('reference="raceline" tracks one plan of one '
+                         "track; a batch of tracks has none")
     dtype, device = track.px.dtype, track.px.device
     kinematic = cfg.model == "kinematic"
     nx = 5 if kinematic else 7
@@ -338,7 +346,8 @@ def _build_tick(track, params: VehicleParams, cfg: SimConfig, x_init,
         if warm is not None:
             warm = _freeze(done, warm, res.qp)
 
-        # the per-instance model reads its state along the first axis
+        # the per-instance model reads its state along the first axis (and
+        # per-instance parameters broadcast along the batch)
         fcr = cm.rear_lateral_force(x.T, params)
         converged = (res.qp.primal_res < c_pres) & (res.qp.mu < c_mu)
         out = dict(
@@ -369,7 +378,8 @@ def simulate(track, params: VehicleParams = VehicleParams(),
     """Run ``cfg.n_ticks`` closed-loop ticks of a batch of laps.
 
     ``x_init``: (B, 7) initial Cartesian plant states on the track's
-    device (default: one instance at rest at the origin).  ``plan``: a
+    device (default: one instance at rest at the origin); ``params`` and
+    ``track`` shared by the batch or per instance.  ``plan``: a
     ``planner.PlannerResult`` on the track's device, which
     ``reference="raceline"`` tracks.  Every lap runs all ``n_ticks``; an
     instance whose lap is done is frozen, so nothing here waits for the
@@ -381,6 +391,105 @@ def simulate(track, params: VehicleParams = VehicleParams(),
         carry, out = tick(carry)
         outs.append(out)
     return _summarise(_stack(outs), cfg, params)
+
+
+@dataclasses.dataclass(frozen=True)
+class SimCarry:
+    """What :func:`simulate_chunked` hands from one chunk to the next, and
+    what ``checkpoint.run_chunked`` saves after each: the loop's state
+    ``(x, x_opt, u_opt, pids, done, warm)`` and the per-tick traces of the
+    ticks run so far, (B, ticks, ...) each."""
+
+    state: tuple
+    traces: dict
+
+    @property
+    def ticks(self) -> int:
+        return self.traces["x"].shape[1]
+
+
+def _empty_traces(Bsz, dtype, device):
+    """The traces of no tick: every field of the tick's output, (B, 0,
+    ...) in its dtype."""
+    z = lambda *shape, dt=dtype: torch.zeros((Bsz, 0) + shape, dtype=dt,
+                                             device=device)
+    return dict(x=z(7), u=z(2), n=z(), obj=z(), slack_n=z(), slack_tyre=z(),
+                iters=z(dt=torch.int32), converged=z(dt=torch.bool),
+                pres=z(), mu=z(), active=z(dt=torch.bool), fcr=z())
+
+
+def init_chunked(track, params: VehicleParams = VehicleParams(),
+                 cfg: SimConfig = SimConfig(), x_init=None) -> SimCarry:
+    """The carry before the first tick of :func:`simulate_chunked`; also
+    the ``like`` that ``checkpoint.restore`` takes for its chunks."""
+    _, state = _build_tick(track, params, cfg, x_init)
+    x = state[0]
+    return SimCarry(state, _empty_traces(x.shape[0], x.dtype, x.device))
+
+
+def chunk_step(track, params: VehicleParams = VehicleParams(),
+               cfg: SimConfig = SimConfig(), chunk_ticks: int = 100):
+    """``step(carry) -> carry``: ``chunk_ticks`` more ticks, their traces
+    appended.  No host synchronisation."""
+    tick, _ = _build_tick(track, params, cfg, None)
+
+    def step(carry: SimCarry) -> SimCarry:
+        state, outs = carry.state, []
+        for _ in range(chunk_ticks):
+            state, out = tick(state)
+            outs.append(out)
+        new = _stack(outs)
+        return SimCarry(state, {k: torch.cat([v, new[k]], 1)
+                                for k, v in carry.traces.items()})
+
+    return step
+
+
+def chunked_outputs(carry: SimCarry, cfg: SimConfig,
+                    params: VehicleParams = VehicleParams()) -> SimOutputs:
+    """The ``SimOutputs`` of a chunked run: its traces trimmed to
+    ``cfg.n_ticks`` ticks, then summarised once."""
+    return _summarise({k: v[:, :cfg.n_ticks] for k, v in carry.traces.items()},
+                      cfg, params)
+
+
+def simulate_chunked(track, params: VehicleParams = VehicleParams(),
+                     cfg: SimConfig = SimConfig(), chunk_ticks: int = 100,
+                     carry: SimCarry | None = None, start_tick: int = 0,
+                     x_init=None, ckpt_dir: str | None = None) -> SimOutputs:
+    """:func:`simulate` in chunks of ``chunk_ticks`` ticks, the JAX
+    package's pod-scale entry point: ``ceil(n_ticks / chunk_ticks)`` chunks
+    run through ``checkpoint.run_chunked`` (the carry saved after each
+    chunk into ``ckpt_dir``, when given), the traces concatenated and
+    trimmed to ``n_ticks``, one summary.  The outputs are
+    :func:`simulate`'s.
+
+    Resume: ``carry`` restored from the checkpoint of a chunk
+    (``checkpoint.restore(checkpoint.chunk_path(ckpt_dir, k),
+    init_chunked(...))``) and ``start_tick`` = the ticks it has run,
+    ``(k + 1) * chunk_ticks``.  ``x_init`` as in :func:`simulate`, for a
+    run that starts anew.  No planner result is threaded: a raceline
+    reference raises, as in the JAX package.
+    """
+    if cfg.reference == "raceline":
+        raise ValueError("simulate_chunked does not thread a planner "
+                         "result; use simulate / simulate_timed for "
+                         "raceline-reference configs")
+    if chunk_ticks < 1:
+        raise ValueError(f"chunk_ticks={chunk_ticks} must be positive")
+    if carry is None:
+        if start_tick:
+            raise ValueError("start_tick > 0 resumes a carry: pass it")
+        carry = init_chunked(track, params, cfg, x_init)
+    elif start_tick != carry.ticks or start_tick % chunk_ticks:
+        raise ValueError(f"the carry has run {carry.ticks} ticks, not "
+                         f"start_tick={start_tick}, a multiple of "
+                         f"chunk_ticks={chunk_ticks}")
+    n_chunks = -(-cfg.n_ticks // chunk_ticks)
+    carry = checkpoint.run_chunked(
+        chunk_step(track, params, cfg, chunk_ticks), carry, n_chunks,
+        ckpt_dir, start_chunk=start_tick // chunk_ticks)
+    return chunked_outputs(carry, cfg, params)
 
 
 def simulate_timed(track, params: VehicleParams = VehicleParams(),
@@ -417,6 +526,12 @@ def simulate_timed(track, params: VehicleParams = VehicleParams(),
     return _summarise(_stack(outs), cfg, params), timing
 
 
+def _per_instance(v):
+    """A vehicle parameter against (B, T) traces: a (B,) field as a
+    column, a shared float as it is."""
+    return v[:, None] if torch.is_tensor(v) and v.ndim else v
+
+
 def _summarise(tr, cfg: SimConfig, params: VehicleParams) -> SimOutputs:
     """Per-instance metrics over the traces' tick axis."""
     dt = cfg.mpc.dt
@@ -425,8 +540,9 @@ def _summarise(tr, cfg: SimConfig, params: VehicleParams) -> SimOutputs:
     n_act = torch.clamp_min(act.sum(1), 1.0)
 
     tv = torch.clamp_min(tr["n"].abs() - cfg.mpc.n_max, 0.0) * act
-    fe = ((tr["fcr"] / (params.m * params.ac_max)) ** 2
-          + (tr["u"][..., 0] / params.al_max) ** 2)
+    m, ac, al = (_per_instance(params.m), _per_instance(params.ac_max),
+                 _per_instance(params.al_max))
+    fe = (tr["fcr"] / (m * ac)) ** 2 + (tr["u"][..., 0] / al) ** 2
     fe_exc = torch.clamp_min(fe - 1.0, 0.0) * act
 
     slack_free = ((tr["slack_n"] < cfg.slack_eps)

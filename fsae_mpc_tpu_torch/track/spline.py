@@ -5,7 +5,9 @@ reparametrisation run once per track on the host in float64 and are the
 JAX package's numpy code unchanged; the evaluation runs on tensors and is
 written so that ``torch.func.vmap``/``jacfwd`` can trace it (the segment
 gather uses ``index_select``, which vmap can batch; a 0-d integer index
-would need ``.item()``).
+would need ``.item()``).  A batch of tracks (``P`` (B, M, 4), ``dl``
+(B,)) is evaluated elementwise: query points (B, ...) each on their own
+instance's spline.
 """
 
 from __future__ import annotations
@@ -153,21 +155,36 @@ def arclength_reparam(x_P: np.ndarray, y_P: np.ndarray, M: int,
 # Evaluation (torch, vectorised over query points)
 # ---------------------------------------------------------------------------
 
+def _per_point(dl, t):
+    """``dl`` shaped to broadcast against query points ``t``: a batch of
+    tracks' (B,) values against (B, ...) points; one track's 0-d value as
+    it is."""
+    if dl.ndim == 0:
+        return dl
+    return dl.reshape(dl.shape + (1,) * (t.ndim - 1))
+
+
 def _locate(t, P, dl):
     """Wrap the query parameter ``mod(t, dl*M)`` and gather the segment
-    ``i = floor(t/dl)`` coefficients; ``tau = t/dl - i``."""
-    M = P.shape[0]
+    ``i = floor(t/dl)`` coefficients; ``tau = t/dl - i``.  Returns
+    ``(tau, coeffs, dl)``, ``dl`` broadcast against ``t``."""
+    M = P.shape[-2]
+    dl = _per_point(dl, t)
     t = torch.remainder(t, dl * M)
     i = torch.clamp(torch.floor(t / dl).to(torch.int64), 0, M - 1)
     tau = t / dl - i
+    if P.ndim == 3:
+        # instance b's row i of the (B*M, 4) stack of every instance's table
+        first = M * torch.arange(P.shape[0], device=i.device)
+        P, i = P.reshape(-1, P.shape[-1]), i + _per_point(first, i)
     coeffs = torch.index_select(P, 0, i.reshape(-1)).reshape(
         i.shape + (P.shape[-1],))
-    return tau, coeffs
+    return tau, coeffs, dl
 
 
 def interpolate(t, P, dl):
     """Spline value."""
-    tau, c = _locate(t, P, dl)
+    tau, c, _ = _locate(t, P, dl)
     omt = 1.0 - tau
     return (c[..., 0] * omt ** 3 + 3.0 * c[..., 1] * omt ** 2 * tau
             + 3.0 * c[..., 2] * omt * tau ** 2 + c[..., 3] * tau ** 3)
@@ -175,7 +192,7 @@ def interpolate(t, P, dl):
 
 def interpolate_d(t, P, dl):
     """First derivative d/ds."""
-    tau, c = _locate(t, P, dl)
+    tau, c, dl = _locate(t, P, dl)
     d = (-3.0 * (1.0 - tau) ** 2 * c[..., 0]
          + 3.0 * (3.0 * tau ** 2 - 4.0 * tau + 1.0) * c[..., 1]
          + 3.0 * (2.0 * tau - 3.0 * tau ** 2) * c[..., 2]
@@ -185,7 +202,7 @@ def interpolate_d(t, P, dl):
 
 def interpolate_dd(t, P, dl):
     """Second derivative."""
-    tau, c = _locate(t, P, dl)
+    tau, c, dl = _locate(t, P, dl)
     dd = (6.0 * (1.0 - tau) * c[..., 0] + 6.0 * (3.0 * tau - 2.0) * c[..., 1]
           + 6.0 * (1.0 - 3.0 * tau) * c[..., 2] + 6.0 * tau * c[..., 3])
     return dd / dl ** 2
@@ -207,9 +224,10 @@ def curvature(s, x_P, y_P, dl):
 
 def curvature_d(s, x_P, y_P, dl):
     """d kappa/ds by central difference with step ``dl``."""
-    k_l = curvature(s - dl, x_P, y_P, dl)
-    k_u = curvature(s + dl, x_P, y_P, dl)
-    return (k_u - k_l) / (2.0 * dl)
+    h = _per_point(dl, s)
+    k_l = curvature(s - h, x_P, y_P, dl)
+    k_u = curvature(s + h, x_P, y_P, dl)
+    return (k_u - k_l) / (2.0 * h)
 
 
 def closest_point(x0, y0, x_P, y_P, dl, s_init, num_iters: int = 12):

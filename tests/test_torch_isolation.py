@@ -209,8 +209,15 @@ def test_kernel_wrappers_refuse_what_they_cannot_run(monkeypatch):
 
 def test_port_never_imports_jax():
     """The slice's modules import neither ``jax`` nor the JAX package (the
-    GPU machine has no JAX)."""
+    GPU machine has no JAX), and ``utils.viz`` imports matplotlib only
+    when it plots (the GPU machine has no matplotlib)."""
     code = ("import sys, fsae_mpc_tpu_torch.mpc.ltv, "
+            "fsae_mpc_tpu_torch.sim.batch, fsae_mpc_tpu_torch.sim.checkpoint, "
+            "fsae_mpc_tpu_torch.parallel, fsae_mpc_tpu_torch.parallel.mesh, "
+            "fsae_mpc_tpu_torch.utils.profiling, "
+            "fsae_mpc_tpu_torch.utils.debug, fsae_mpc_tpu_torch.utils.viz, "
+            "fsae_mpc_tpu_torch.utils.tree, "
+            "fsae_mpc_tpu_torch.models.instances, "
             "fsae_mpc_tpu_torch.interop, fsae_mpc_tpu_torch.track, "
             "fsae_mpc_tpu_torch.sim, fsae_mpc_tpu_torch.models.cartesian, "
             "fsae_mpc_tpu_torch.models.transforms, "
@@ -221,7 +228,7 @@ def test_port_never_imports_jax():
             "fsae_mpc_tpu_torch.planner.min_time, "
             "fsae_mpc_tpu_torch.planner.reference; "
             "bad = [m for m in sys.modules if m == 'jax' or "
-            "m.startswith(('jax.', 'fsae_mpc_tpu.'))]; "
+            "m.startswith(('jax.', 'fsae_mpc_tpu.', 'matplotlib'))]; "
             "assert not bad, bad")
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     subprocess.run([sys.executable, "-c", code], cwd=root, check=True,

@@ -50,18 +50,19 @@ def jacobians(fn, x, u):
     return y, J[..., :nx], J[..., nx:]
 
 
-def linearize_discrete(step, x_traj, u_traj):
-    y, Ad, Bd = jacobians(step, x_traj, u_traj)
+def linearize_discrete(step, x_traj, u_traj, data=()):
+    """The candidate for shared data (floats, one track) only."""
+    y, Ad, Bd = jacobians(lambda x, u: step(x, u, *data), x_traj, u_traj)
     return Ad, Bd, (y - (Ad @ x_traj[..., None])[..., 0]
                     - (Bd @ u_traj[..., None])[..., 0])
 
 
 def linearize_group(g_fn, x_lin, u_lin, lb, ub, slack_idx, state_rows=None,
-                    ctrl_cols=None):
+                    ctrl_cols=None, data=()):
     import numpy as np
     import torch
     from fsae_mpc_tpu_torch.mpc.constraints import StageConstraint
-    g0, C, D = jacobians(g_fn, x_lin, u_lin)
+    g0, C, D = jacobians(lambda x, u: g_fn(x, u, *data), x_lin, u_lin)
     Ng = x_lin.shape[-2]
     return StageConstraint(
         C=C, D=D,

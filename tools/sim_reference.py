@@ -7,7 +7,8 @@ computed on a CPU.
     python3 tools/sim_reference.py plan64 [--nodes 160] [--port]
                                           [--threads T] [--out PLAN.npz]
     python3 tools/sim_reference.py divergence [--ticks 20] [--check 4]
-                                              [--nmpc | --raceline PLAN.npz]
+                                              [--nmpc | --raceline PLAN.npz
+                                               | --pod POD.json]
                                               [--only KEY ...]
 
 ``t64``: the JAX package's f64 lap of fsg2019 in the configuration of its
@@ -42,7 +43,11 @@ NMPC configurations (``chip_smoke.NMPC_CONFIGS``), keyed as
 loop (``chip_smoke.RACELINE_CONFIG``) tracking that plan (a ``plan64
 --out`` archive, or the card's plan that ``chip_smoke.py`` writes where
 ``PLAN_OUT`` names a file).  ``--only``: just the configurations whose
-``Loop.key`` is given (e.g. ``c-nmpc/kinematic/hs``).
+``Loop.key`` is given (e.g. ``c-nmpc/kinematic/hs``).  With ``--pod
+POD.json``: phase 8's checked instances (``chip_smoke.POD_CHECK``, two per
+track, each on its own track) with the vehicles the card drew for them
+(the file ``chip_smoke.py`` writes where ``POD_OUT`` names one), from
+rest, in ``chip_smoke.POD_CONFIG``; keyed ``"pod"``.
 """
 
 from __future__ import annotations
@@ -142,7 +147,8 @@ def _summary(out, seconds, index=None):
     return d
 
 
-def divergence(ticks, check, nmpc=False, raceline=None, only=None):
+def divergence(ticks, check, nmpc=False, raceline=None, only=None,
+               pod=None):
     import numpy as np
     import torch
     import chip_smoke
@@ -153,6 +159,14 @@ def divergence(ticks, check, nmpc=False, raceline=None, only=None):
 
     # one intra-op thread, as chip_smoke.py's CPU laps run
     torch.set_num_threads(1)
+    if pod:
+        with open(pod) as f:
+            fields = {k: np.asarray(v) for k, v in json.load(f).items()}
+        return {"pod": _divergence(lambda dtype: simulate(
+            *chip_smoke.pod_instances(fields, dtype),
+            chip_smoke.POD_CONFIG.sim_config(ticks, MPC_F32),
+            torch.zeros((len(chip_smoke.POD_CHECK), 7), dtype=dtype)),
+            "pod")}
     x_init = chip_smoke.sim_scenarios(check)
     configs = (chip_smoke.NMPC_CONFIGS if nmpc else
                [chip_smoke.RACELINE_CONFIG] if raceline else
@@ -166,19 +180,27 @@ def divergence(ticks, check, nmpc=False, raceline=None, only=None):
     out = {}
     for loop in configs:
         cfg = loop.sim_config(ticks, MPC_F32)
-        xs = {}
-        for dtype in (torch.float32, torch.float64):
-            track, _ = load_track(TRACK, dtype=dtype, device="cpu")
-            t0 = time.perf_counter()
-            res = simulate(track, VehicleParams(), cfg,
-                           torch.tensor(x_init, dtype=dtype), plan=plan)
-            xs[dtype] = res.x_history.double().numpy()
-            print(f"{loop.tag} {dtype}: {time.perf_counter() - t0:.1f} s",
-                  file=sys.stderr)
-        d = np.abs(xs[torch.float32] - xs[torch.float64])
-        out[loop.key] = {"per_state": d.max((0, 1)).tolist(),
-                         "per_tick": d.max((0, 2)).tolist()}
+        out[loop.key] = _divergence(lambda dtype: simulate(
+            load_track(TRACK, dtype=dtype, device="cpu")[0],
+            VehicleParams(), cfg, torch.tensor(x_init, dtype=dtype),
+            plan=plan), loop.tag)
     return out
+
+
+def _divergence(run, tag):
+    """max |x_f32 - x_f64| of ``run(dtype)``'s plant states, per state
+    and per tick."""
+    import numpy as np
+    import torch
+    xs = {}
+    for dtype in (torch.float32, torch.float64):
+        t0 = time.perf_counter()
+        xs[dtype] = run(dtype).x_history.double().numpy()
+        print(f"{tag} {dtype}: {time.perf_counter() - t0:.1f} s",
+              file=sys.stderr)
+    d = np.abs(xs[torch.float32] - xs[torch.float64])
+    return {"per_state": d.max((0, 1)).tolist(),
+            "per_tick": d.max((0, 2)).tolist()}
 
 
 def main() -> int:
@@ -195,6 +217,7 @@ def main() -> int:
     ap.add_argument("--threads", type=int)
     ap.add_argument("--out", metavar="PLAN.npz")
     ap.add_argument("--only", nargs="+", metavar="KEY")
+    ap.add_argument("--pod", metavar="POD.json")
     a = ap.parse_args()
     if a.what == "t64":
         res = t64()
@@ -203,7 +226,8 @@ def main() -> int:
     elif a.what == "plan64":
         res = plan64(a.nodes, a.iters, a.port, a.threads, a.out)
     else:
-        res = divergence(a.ticks, a.check, a.nmpc, a.raceline, a.only)
+        res = divergence(a.ticks, a.check, a.nmpc, a.raceline, a.only,
+                         a.pod)
     print(json.dumps(res))
     return 0
 
