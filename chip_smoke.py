@@ -101,7 +101,7 @@ Phases (any failure exits non-zero before the result lines):
                  equal to the schedule, and the tick times against the
                  50 ms budget.  Phase 2 also times K1-K3 and K5-K7 at the
                  kinematic QP's shapes (nx=5, ns=1, r=6; n=81).
-  6. NMPC loop -- ``sim.simulate`` at B=1024 laps of 10 ticks with the
+  6. NMPC loop -- ``sim.simulate`` at B=1024 laps of 5 ticks with the
                  NMPC modes (``NMPC_CONFIGS``): MS dynamic/Riccati/
                  ``F32_PRODUCTION`` (K1 at ns=2, K4 once a tick), MS
                  kinematic/dense/``F32_ACCURATE`` (K5-K7, the pre-step
@@ -153,6 +153,27 @@ Phases (any failure exits non-zero before the result lines):
                  the metric summary reduced over the mesh
                  (``pmean_metrics``).
 
+  9. routes   -- structured and alternative routes at B=1024 on fsg2019
+                 with ``MPC_F32``: (a) ``ltv_mpc_dynamic(backend="dense",
+                 structured="gen")`` (the generator-factored rows through
+                 the dense IPM) from phase 3's inputs, one cold solve and
+                 10 warm ticks under ``F32_ACCURATE`` and ``F32_OPTS``,
+                 beside the dense tick: launches equal to the dense
+                 schedule (K5 once a tick), warm-tick ms and peak memory,
+                 no host sync in one more warm tick; (b) phase 3b(a)'s 32
+                 instances' structured QPs solved cold on the card under
+                 ``F32_ACCURATE`` within the JAX package's bars for that
+                 path (``GEN_ACC_BARS``) of a tight f64 solve; (c)
+                 ``GenRows``' products on the card against
+                 ``materialize()``'s, and its compensated products against
+                 f64; (d) ``condense_dnc`` against K5 on the same CUDA
+                 tensors, and a dense tick with ``condense="dnc"`` against
+                 the default one; (e) ``chol="blocked"``: no K6/K7 launch,
+                 the 32 instances within (b)'s bars, its tick time beside
+                 ``chol="auto"``'s; (f) the native runtime built with g++:
+                 the active-set QP on 4 of phase 3's QPs against the f64
+                 dense IPM, the native CSV reader against numpy.
+
 The last three lines of standard output are the card's name and power
 limit, one JSON object with the kernels, and
 ``{"ok": true, "device": {...}}``.
@@ -165,6 +186,7 @@ import multiprocessing
 import os
 import subprocess
 import sys
+import tempfile
 import time
 from typing import NamedTuple
 
@@ -292,27 +314,28 @@ SIM_STATE_TOL = {k: tuple(5.0 * v for v in d)
 # stages) and Hermite-Simpson's condensed QP (2N+1 points, n = 163: K6
 # and K7 in their six-slot build).  F32_ACCURATE is refused by the
 # Riccati solver (scale_kkt, comp_resid), hence F32_PRODUCTION there.
-NMPC_TICKS = 10
+NMPC_TICKS = 5
 # instances 0..SIM_CHECK-1 against the same laps run by the port on the
 # CPU in f32, as phase 4: NMPC_F32_DIVERGENCE is the f32-against-f64
 # divergence of these laps and ticks on a CPU (``tools/sim_reference.py
-# divergence --nmpc --ticks 10``, x86-64), the tolerance 5x that.  The
+# divergence --nmpc --ticks 5``, x86-64), the tolerance 5x that.  The
 # plant's position error is a vector in the plane whose split between x
 # and y follows the heading, so both coordinates take the larger of their
-# two divergences (the kinematic MS laps' x alone diverges by 2.55e-7 m,
-# two f32 units in the last place at the laps' ~1.3 m, where y diverges by
-# 4.41e-6).
+# two divergences (at 10 ticks the kinematic MS laps' x alone diverges by
+# 2.55e-7 m, two f32 units in the last place at the laps' ~1.3 m, where y
+# diverges by 4.41e-6).  5 ticks keep the whole run near the time it took
+# before phase 9 was added.
 NMPC_F32_DIVERGENCE = {
-    "ms-nmpc/dynamic": (1.24e-03, 3.57e-04, 3.18e-04, 3.45e-03, 1.34e-03,
+    "ms-nmpc/dynamic": (3.82e-04, 1.98e-04, 2.84e-04, 3.44e-03, 1.34e-03,
                         2.20e-03, 1.67e-03),
-    "ms-nmpc/kinematic": (2.55e-07, 4.41e-06, 4.66e-06, 5.97e-06, 6.82e-05,
-                          1.07e-04, 6.63e-05),
-    "c-nmpc/dynamic": (1.98e-06, 1.66e-05, 1.81e-05, 3.08e-05, 8.75e-05,
-                       1.40e-04, 7.16e-05),
-    "c-nmpc/kinematic": (4.45e-07, 1.45e-06, 1.77e-06, 3.33e-06, 1.24e-05,
-                         2.14e-05, 8.46e-06),
-    "c-nmpc/kinematic/hs": (1.79e-06, 6.64e-06, 7.37e-06, 7.61e-06,
-                            2.83e-05, 4.96e-05, 2.76e-05)}
+    "ms-nmpc/kinematic": (1.24e-07, 1.72e-07, 6.61e-07, 6.48e-07, 1.09e-05,
+                          1.74e-05, 1.37e-05),
+    "c-nmpc/dynamic": (1.52e-06, 2.14e-07, 6.76e-07, 7.53e-06, 1.16e-05,
+                       1.87e-05, 1.90e-05),
+    "c-nmpc/kinematic": (1.30e-07, 1.39e-07, 2.00e-07, 8.82e-07, 6.05e-06,
+                         9.88e-06, 3.38e-08),
+    "c-nmpc/kinematic/hs": (1.62e-07, 5.10e-07, 4.27e-07, 1.25e-06,
+                            1.43e-05, 2.30e-05, 1.84e-05)}
 NMPC_STATE_TOL = {k: tuple(5.0 * v for v in (max(d[:2]),) * 2 + d[2:])
                   for k, d in NMPC_F32_DIVERGENCE.items()}
 NMPC_CONFIGS = (Loop("ms-nmpc", "dynamic", "riccati", "F32_PRODUCTION"),
@@ -402,6 +425,32 @@ POD_STATE_TOL = tuple(5.0 * v for v in (max(POD_F32_DIVERGENCE[:2]),) * 2
 # the instances, to the larger of the deviations that moving every
 # instance's s0 one f32 unit up or down causes in the whole batch's tick.
 POD_QUANTILES = (0.5, 0.9, 0.99, 0.999)
+# phase 9, structured and alternative routes, on phase 3's inputs and
+# phase 3b(a)'s 32 instances.  The structured tick runs under each of
+# GEN_PRESETS; its accuracy is held to the JAX package's own bars for that
+# path under F32_ACCURATE (tests/test_structured.py:178-186), the
+# BASELINE bars printed beside.
+GEN_PRESETS = ("F32_ACCURATE", "F32_OPTS")
+GEN_ACC_BARS = {"first_control_max": 3e-2, "mean_control": 5e-3}
+# GenRows' plain f32 products against the same products of its
+# materialised (B, 800, 84) A, per entry over the same product of the
+# absolute values (|A||x|, |A|'|z|, |A|'diag(d)|A|): two f32 contractions
+# of up to 800 terms in other orders (on a CPU at phase 3's first 8
+# instances: 2.0e-7, 5.3e-7, 8.8e-7, ``tools/sim_reference.py routes``);
+# the compensated products against the f64 product of the same f32
+# factors, the JAX package's bar (tests/test_structured.py).
+GENROWS_TOL = 1e-5
+GENROWS_COMP_TOL = 1e-11
+# the native active-set QP against the f64 dense IPM on 4 of phase 3's
+# QPs.  Their minimiser is weakly determined in the steering-rate
+# controls: on a CPU the two solvers' x stay 6.3e-5 to 1.2e-4 apart with
+# the IPM at 60 iterations (objectives 2e-11 to 1.5e-10 apart, relative),
+# at 200 (1.4e-12 to 7.3e-12) and with the active-set's own
+# regularisation added to H (``tools/sim_reference.py routes``); so the
+# objective is held to 1e-9 and x to 5e-4, where the JAX package's test
+# holds a kinematic QP at N=6 to 1e-5.
+ACTIVESET_OBJ_RTOL = 1e-9
+ACTIVESET_X_TOL = 5e-4
 # the faults compiled into riccati.cu under -DRICCATI_PLANT=n, each of
 # which the assemble_factor (1, 2), apply_fwd (3, 4), apply_bwd (5, 6) or
 # factor (7, 8) checks must fail
@@ -1256,6 +1305,43 @@ def solve_built(backend, qp, opts, warm):
     return ipm.solve_qp(*qp[:7], opts, warm=warm)
 
 
+def drive_ticks(tick, step, mpc, x0_t, x_lin_t, u_lin_t, tag):
+    """One cold solve of ``tick`` and WARM_TICKS warm ticks in closed loop
+    with the plant ``step``.  Returns the last warm tick's
+    ``(x0, x_ref, x_lin, u_lin, result)``, the warm-tick ms (CUDA events),
+    the peak device memory in GB, the cold solve's s and the host's s for
+    the warm ticks; fails on a non-finite control or state."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = tick(x0_t, x_lin_t, u_lin_t)
+    torch.cuda.synchronize()
+    cold_s = time.perf_counter() - t0
+    finite = [torch.isfinite(res.u_opt).all()]
+    carry = (x0_t, res.x_opt, res.u_opt, res.qp)
+    last = None
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    t0 = time.perf_counter()
+    for _ in range(WARM_TICKS):
+        xc, xl, ul, warm = carry
+        res = tick(xc, xl, ul, warm)
+        finite.append(torch.isfinite(res.u_opt).all())
+        last = (xc, reference(xc, mpc), xl, ul, res)
+        carry = (step(xc, res.u_opt[:, 0]), res.x_opt, res.u_opt, res.qp)
+    end.record()
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    tick_ms = start.elapsed_time(end) / WARM_TICKS
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(bool(torch.stack(finite).all()), f"{tag}: non-finite u_opt")
+    check(bool(torch.isfinite(carry[0]).all()),
+          f"{tag}: non-finite closed-loop state")
+    return last, tick_ms, peak_gb, cold_s, host_s
+
+
 def main_path(backend, model, device, card, kres):
     """One cold solve and WARM_TICKS warm ticks of
     ``ltv_mpc_dynamic(backend=...)`` at B=1024 under each f32 preset, in
@@ -1282,34 +1368,8 @@ def main_path(backend, model, device, card, kres):
             xc, reference(xc, mpc), track, params, mpc, xl, ul, opts,
             warm=warm, backend=backend)
 
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        res = tick(x0_t, x_lin_t, u_lin_t)
-        torch.cuda.synchronize()
-        cold_s = time.perf_counter() - t0
-        finite = [torch.isfinite(res.u_opt).all()]
-        carry = (x0_t, res.x_opt, res.u_opt, res.qp)
-        last = None
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        t0 = time.perf_counter()
-        for _ in range(WARM_TICKS):
-            xc, xl, ul, warm = carry
-            res = tick(xc, xl, ul, warm)
-            finite.append(torch.isfinite(res.u_opt).all())
-            last = (xc, reference(xc, mpc), xl, ul, res)
-            carry = (step(xc, res.u_opt[:, 0]), res.x_opt, res.u_opt, res.qp)
-        end.record()
-        torch.cuda.synchronize()
-        host_s = time.perf_counter() - t0
-        tick_ms = start.elapsed_time(end) / WARM_TICKS
-        peak_gb = torch.cuda.max_memory_allocated() / 1e9
-        check(bool(torch.stack(finite).all()),
-              f"{backend} {name}: non-finite u_opt")
-        check(bool(torch.isfinite(carry[0]).all()),
-              f"{backend} {name}: non-finite closed-loop state")
+        last, tick_ms, peak_gb, cold_s, host_s = drive_ticks(
+            tick, step, mpc, x0_t, x_lin_t, u_lin_t, f"{backend} {name}")
         got = {k: v - before[k] for k, v in launches().items()}
         log(f"main path {backend} {name}: cold solve {cold_s:.3f} s "
             f"(includes first use), warm tick {tick_ms:.2f} ms (CUDA "
@@ -1422,7 +1482,9 @@ def control_errors(tag, u32, ref_u, seconds):
 
 def accuracy_record_regime(model, device):
     """(a) three ticks of f64 history on CPU tensors, then each preset's
-    cold f32 Riccati solve of the fourth tick's QP on the card."""
+    cold f32 Riccati solve of the fourth tick's QP on the card.  Returns
+    the f64 track and the fourth tick's f64 ``(x0, x_lin, u_lin)`` (phase
+    9 solves the same instances on its routes)."""
     import dataclasses
     import torch
     from fsae_mpc_tpu_torch.mpc import ltv
@@ -1456,6 +1518,7 @@ def accuracy_record_regime(model, device):
             check(fc <= ACC_BARS["first_control_max"]
                   and mean <= ACC_BARS["mean_control"],
                   f"{name}: accuracy {fc:.3e}/{mean:.3e} outside the bars")
+    return track64, (xc, xl, ul)
 
 
 def accuracy_warm_chain(backend, out, model):
@@ -2080,9 +2143,380 @@ def pod_phase(device, card, track, params, cpu_ref):
     return {k: v for k, v in got.items() if v}
 
 
+# ---------------------------------------------------------------------------
+# phase 9: structured and alternative routes
+# ---------------------------------------------------------------------------
+
+
+def gen_tick_phase(model, device, card):
+    """(a) ``ltv_mpc_dynamic(backend="dense", structured="gen")`` and the
+    dense tick beside it, one cold solve and WARM_TICKS warm ticks at
+    B=1024 from phase 3's inputs under each of GEN_PRESETS: launches equal
+    to the dense schedule (K5 once a tick), warm-tick ms and peak memory;
+    one more warm structured tick of each preset makes no host sync.
+    Returns the runs and the launch counts."""
+    import torch
+    from fsae_mpc_tpu_torch.mpc import ltv
+    from fsae_mpc_tpu_torch.ops import ipm
+
+    track, params, mpc = model
+    step = closed_loop_step(track, params, mpc)
+    x0_t, x_lin_t, u_lin_t = initial_batch(B_MAIN, mpc, torch.float32,
+                                           device)
+    schedule = {k: 0 for k in launches()}
+    runs = {}
+    reset_launches()
+    for name in GEN_PRESETS:
+        opts = getattr(ipm, name)
+        exp, _ = schedule_of("dense", opts, 1 + WARM_TICKS)
+        for structured in ("gen", False):
+            tag = f"routes (a) {'structured' if structured else 'dense'} " \
+                  f"{name}"
+            before = launches()
+            tick = lambda xc, xl, ul, warm=None: ltv.ltv_mpc_dynamic(
+                xc, reference(xc, mpc), track, params, mpc, xl, ul, opts,
+                warm=warm, structured=structured)
+            last, tick_ms, peak_gb, cold_s, host_s = drive_ticks(
+                tick, step, mpc, x0_t, x_lin_t, u_lin_t, tag)
+            got = {k: v - before[k] for k, v in launches().items()}
+            for k, v in exp.items():
+                schedule[k] += v
+            runs[name, structured] = dict(last=last, tick_ms=tick_ms,
+                                          peak_gb=peak_gb)
+            log(f"{tag}: cold solve {cold_s:.3f} s, warm tick "
+                f"{tick_ms:.2f} ms (CUDA events; host "
+                f"{1e3 * host_s / WARM_TICKS:.2f} ms), peak device memory "
+                f"{peak_gb:.3f} GB at B={B_MAIN}; launches {got}  ({card})")
+            check(got == exp, f"{tag}: launches {got} != schedule {exp}")
+        g, d = runs[name, "gen"], runs[name, False]
+        log(f"routes (a) {name}: structured / dense warm tick "
+            f"{g['tick_ms']:.2f} / {d['tick_ms']:.2f} ms "
+            f"({g['tick_ms'] / d['tick_ms']:.3f}x), peak memory "
+            f"{g['peak_gb']:.3f} / {d['peak_gb']:.3f} GB  ({card})")
+    total = launches()
+    check(total == schedule, f"routes (a): launches {total} != schedule "
+          f"{schedule}")
+    for name in GEN_PRESETS:
+        xc, x_ref, xl, ul, res = runs[name, "gen"]["last"]
+        torch.cuda.synchronize()
+        qp, build = sync_debug(lambda: ltv.build_qp_dynamic(
+            xc, x_ref, track, params, mpc, xl, ul, structured="gen")[0])
+        _, solve = sync_debug(lambda: ipm.solve_qp(
+            *qp[:7], getattr(ipm, name), warm=res.qp))
+        torch.cuda.synchronize()
+        log(f"host syncs structured {name}: QP build {len(build)}, solve "
+            f"{len(solve)}  {sorted(set(build + solve))[:8]}")
+        check(not build and not solve,
+              f"the structured {name} tick synchronises with the host")
+    return runs, {k: total[k] for k, v in schedule.items() if v}
+
+
+def regime_qps(model, rec):
+    """Phase 3b(a)'s 32 instances: their f64 QPs on the CPU, dense and
+    structured, and a tight f64 solve of each (the controls)."""
+    from fsae_mpc_tpu_torch.mpc import ltv
+    from fsae_mpc_tpu_torch.ops import ipm
+
+    _, params, mpc = model
+    track64, (xc, xl, ul) = rec
+    N = mpc.n_steps
+    x_ref = reference(xc, mpc)
+    out = {}
+    for key, structured in (("dense", False), ("gen", "gen")):
+        qp, _ = ltv.build_qp_dynamic(xc, x_ref, track64, params, mpc, xl,
+                                     ul, structured=structured)
+        t0 = time.perf_counter()
+        x = ipm.solve_qp(*qp[:7], ipm.IpmOptions(max_iters=60)).x
+        out[key] = (qp, x[:, :N * NU].reshape(-1, N, NU),
+                    time.perf_counter() - t0)
+    return out
+
+
+def cast_solve(qp64, opts, device, N):
+    """The f64 QP on the card in f32, solved cold; its controls."""
+    import torch
+    from fsae_mpc_tpu_torch.ops import ipm
+    qp32 = [q.to(device=device, dtype=torch.float32) for q in qp64[:7]]
+    x = ipm.solve_qp(*qp32, opts).x
+    check(bool(torch.isfinite(x).all()), "non-finite solve")
+    return x[:, :N * NU].reshape(-1, N, NU)
+
+
+def gen_accuracy(regime, model, device):
+    """(b) the structured QPs of the 32 instances, solved cold on the card
+    under F32_ACCURATE, against the tight f64 solve: the JAX package's
+    bars for this path (GEN_ACC_BARS), the BASELINE bars beside."""
+    from fsae_mpc_tpu_torch.ops import ipm
+    qp64, ref_u, secs = regime["gen"]
+    u32 = cast_solve(qp64, ipm.F32_ACCURATE, device, model[2].n_steps)
+    fc, mean = control_errors(
+        f"routes (b) structured F32_ACCURATE ({REC_BATCH} instances after "
+        f"{REC_TICKS} f64 ticks, cold f32 solve)", u32, ref_u, secs)
+    log(f"routes (b): the structured path's bars (the JAX package's): "
+        f"first control < {GEN_ACC_BARS['first_control_max']:.0e}, mean < "
+        f"{GEN_ACC_BARS['mean_control']:.0e}; BASELINE bars "
+        f"{ACC_BARS['first_control_max']:.0e} / "
+        f"{ACC_BARS['mean_control']:.0e}")
+    check(fc < GEN_ACC_BARS["first_control_max"]
+          and mean < GEN_ACC_BARS["mean_control"],
+          f"routes (b): structured accuracy {fc:.3e}/{mean:.3e} outside "
+          "the bars")
+
+
+def genrows_errors(A, seed=SEED):
+    """``GenRows`` A's plain f32 products against the same products of
+    ``A.materialize()`` and its compensated products against the f64
+    product of its f32 factors, on A's device: per entry over the same
+    product of the absolute values (|A||x|, |A|'|z|, |A|'diag(d)|A|).
+    Returns (plain, compensated), dicts of the largest such error."""
+    import torch
+    from fsae_mpc_tpu_torch.ops.precision import highest_precision
+
+    device = A.device
+    Bsz, m, n = A.shape
+    gen = torch.Generator(device=device).manual_seed(seed)
+    rnd = lambda *shape: torch.randn(shape, generator=gen, device=device)
+    x, z, base = rnd(Bsz, n), rnd(Bsz, m), rnd(Bsz, n)
+    d = torch.rand((Bsz, m), generator=gen, device=device) + 0.1
+    f64 = torch.float64
+    S, R, ns = A.W.shape[1], A.W.shape[2], A.Ws.shape[-1]
+    A64 = torch.einsum("bsrg,bsgn->bsrn", A.W.to(f64), A.Ag.to(f64))
+    A64[..., n - ns:] += A.Ws.to(f64)
+    A64 = A64.reshape(Bsz, S * R, n)
+    absA = A64.abs()
+    x64, z64, d64, b64 = (v.to(f64) for v in (x, z, d, base))
+
+    def err(y, ref, scale):
+        return float(((y.to(f64) - ref.to(f64)).abs()
+                      / (scale + 1e-30)).max())
+
+    with highest_precision():
+        Am = A.materialize()
+        plain = {
+            "matvec": err(A.matvec(x), torch.einsum("bmn,bn->bm", Am, x),
+                          torch.einsum("bmn,bn->bm", absA, x64.abs())),
+            "rmatvec": err(A.rmatvec(z), torch.einsum("bmn,bm->bn", Am, z),
+                           torch.einsum("bmn,bm->bn", absA, z64.abs())),
+            "quadform": err(A.quadform(d), (Am.mT * d[:, None, :]) @ Am,
+                            (absA.mT * d64[:, None, :]) @ absA)}
+        hi, lo = A.matvec_compensated(x)
+        comp = {"matvec_compensated": err(
+            hi.to(f64) + lo.to(f64), torch.einsum("bmn,bn->bm", A64, x64),
+            torch.einsum("bmn,bn->bm", absA, x64.abs()))}
+        hi, lo = A.rmatvec_compensated(z, base)
+        comp["rmatvec_compensated"] = err(
+            hi.to(f64) + lo.to(f64),
+            b64 + torch.einsum("bmn,bm->bn", A64, z64),
+            torch.einsum("bmn,bm->bn", absA, z64.abs()) + b64.abs())
+    return plain, comp
+
+
+def genrows_on_card(runs, model, device):
+    """(c) the GenRows products at B=1024 on CUDA tensors: the plain f32
+    ones within GENROWS_TOL of ``materialize()``'s, the compensated ones
+    within GENROWS_COMP_TOL of f64 (:func:`genrows_errors`)."""
+    from fsae_mpc_tpu_torch.mpc import ltv
+
+    track, params, mpc = model
+    xc, x_ref, xl, ul, _ = runs["F32_OPTS", "gen"]["last"]
+    A = ltv.build_qp_dynamic(xc, x_ref, track, params, mpc, xl, ul,
+                             structured="gen")[0][2]
+    plain, comp = genrows_errors(A)
+    log(f"routes (c) GenRows at B={A.shape[0]} on {device}: plain f32 "
+        f"products vs materialize() " + ", ".join(
+            f"{k} {v:.3e}" for k, v in plain.items())
+        + f" (tol {GENROWS_TOL:.0e}); compensated vs f64 "
+        + ", ".join(f"{k} {v:.3e}" for k, v in comp.items())
+        + f" (tol {GENROWS_COMP_TOL:.0e})")
+    check(all(v <= GENROWS_TOL for v in plain.values()),
+          f"routes (c): GenRows products {plain}")
+    check(all(v < GENROWS_COMP_TOL for v in comp.values()),
+          f"routes (c): GenRows compensated products {comp}")
+
+
+def dnc_phase(runs, regime, model, rec, device):
+    """(d) ``condense_dnc`` against K5 on the same CUDA tensors (the
+    linearisation of phase 3's states after the warm ticks), normwise
+    within KERNEL_RTOL; then the dense F32_ACCURATE tick of the 32
+    instances with ``condense="dnc"`` against the default tick: first
+    controls within the BASELINE bars of each other."""
+    import torch
+    from fsae_mpc_tpu_torch.mpc import ltv
+    from fsae_mpc_tpu_torch.ops import ipm
+    from fsae_mpc_tpu_torch.ops.condense import condense_dnc
+    from fsae_mpc_tpu_torch.ops.kernels import condense as kcondense
+
+    track, params, mpc = model
+    xc, x_ref, xl, ul, _ = runs["F32_OPTS", False]["last"]
+    _, (Ad, Bd, dd) = ltv.build_qp_dynamic(xc, x_ref, track, params, mpc,
+                                           xl, ul)
+    Ad, Bd, dd = Ad.contiguous(), Bd.contiguous(), dd.contiguous()
+    k5 = kcondense.condense(Ad, Bd, dd)
+    dnc = condense_dnc(Ad, Bd, dd)
+    rel = max(rel_err(a, b) for a, b in zip(dnc, k5))
+    log(f"routes (d) condense_dnc vs K5 at B={Ad.shape[0]}, N={Ad.shape[1]}"
+        f": max rel err {rel:.3e} (tol {KERNEL_RTOL:.0e})")
+    check(all(bool(torch.isfinite(t).all()) for t in dnc)
+          and rel <= KERNEL_RTOL, f"routes (d): condense_dnc rel err {rel}")
+    _, (xc64, xl64, ul64) = rec
+    a32 = [t.to(device, torch.float32)
+           for t in (xc64, reference(xc64, mpc), xl64, ul64)]
+    u = {c: ltv.ltv_mpc_dynamic(a32[0], a32[1], track, params, mpc, a32[2],
+                                a32[3], ipm.F32_ACCURATE, condense=c).u_opt
+         for c in ("pallas", "dnc")}
+    du = (to_cpu64(u["dnc"]) - to_cpu64(u["pallas"])).abs()
+    fc, mean = float(du[:, 0].max()), float(du.mean())
+    ref_u = regime["dense"][1]
+    errs = {c: float((to_cpu64(v) - ref_u)[:, 0].abs().max())
+            for c, v in u.items()}
+    log(f"routes (d) dense F32_ACCURATE tick, {REC_BATCH} instances, "
+        f"condense='dnc' vs the default (K5): first control max {fc:.3e} "
+        f"(tol {ACC_BARS['first_control_max']:.0e}), mean {mean:.3e} (tol "
+        f"{ACC_BARS['mean_control']:.0e}); first control vs the tight f64 "
+        f"solve: default {errs['pallas']:.3e}, dnc {errs['dnc']:.3e}")
+    check(fc <= ACC_BARS["first_control_max"]
+          and mean <= ACC_BARS["mean_control"],
+          f"routes (d): the dnc tick's controls part from the default's "
+          f"{fc:.3e}/{mean:.3e}")
+
+
+def blocked_phase(runs, regime, model, device, card):
+    """(e) ``chol="blocked"`` under F32_ACCURATE: no K6/K7 launch; the
+    32 instances' dense QPs solved cold on that route meet (b)'s bars
+    against the tight f64 solve; one warm tick at B=1024 timed beside the
+    same tick on ``chol="auto"``."""
+    import dataclasses
+    from fsae_mpc_tpu_torch.mpc import ltv
+    from fsae_mpc_tpu_torch.ops import ipm
+
+    track, params, mpc = model
+    blocked = dataclasses.replace(ipm.F32_ACCURATE, chol="blocked")
+    qp64, ref_u, secs = regime["dense"]
+    before = launches()
+    u32 = cast_solve(qp64, blocked, device, mpc.n_steps)
+    fc, mean = control_errors(
+        f"routes (e) dense F32_ACCURATE chol='blocked' ({REC_BATCH} "
+        "instances, cold f32 solve)", u32, ref_u, secs)
+    check(fc < GEN_ACC_BARS["first_control_max"]
+          and mean < GEN_ACC_BARS["mean_control"],
+          f"routes (e): blocked accuracy {fc:.3e}/{mean:.3e} outside "
+          f"(b)'s bars")
+    xc, x_ref, xl, ul, res = runs["F32_ACCURATE", False]["last"]
+    tick = lambda opts: ltv.ltv_mpc_dynamic(xc, x_ref, track, params, mpc,
+                                            xl, ul, opts, warm=res.qp)
+    ms = {"blocked": cuda_ms(lambda: tick(blocked), 1, warmup=1)}
+    got = {k: v - before[k] for k, v in launches().items()}
+    ms["auto"] = cuda_ms(lambda: tick(ipm.F32_ACCURATE), 1, warmup=1)
+    log(f"routes (e) warm dense F32_ACCURATE tick at B={B_MAIN}: "
+        f"chol='blocked' {ms['blocked']:.2f} ms, chol='auto' "
+        f"{ms['auto']:.2f} ms (CUDA events); launches on the blocked route "
+        f"{got}  ({card})")
+    check(got["chol_factor"] == 0 and got["chol_solve"] == 0,
+          f"routes (e): the blocked route launched K6/K7: {got}")
+
+
+def activeset_rows(qp64, ipm_opts=None):
+    """Each instance of the f64 dense QPs ``qp64`` (CPU tensors) by the
+    native active-set QP and by the f64 dense IPM (``ipm_opts``, default
+    60 iterations): (status, max |dx|, first control max |du|, objective
+    relative difference, the active-set point's largest violation)."""
+    import numpy as np
+    from fsae_mpc_tpu_torch.ops import ipm
+    from fsae_mpc_tpu_torch.runtime import native_lib
+
+    res = ipm.solve_qp(*qp64, ipm_opts or ipm.IpmOptions(max_iters=60))
+    rows = []
+    for b in range(qp64[0].shape[0]):
+        H, g, A, lb, ub, lbA, ubA = (q[b].numpy() for q in qp64)
+        x, obj, status = native_lib.qp_solve_activeset(
+            H, g, A, lb, ub, lbA, ubA, max_iter=2000)
+        y = A @ x
+        viol = max(float(np.max(np.maximum(lbA - y, 0.0))),
+                   float(np.max(np.maximum(y - ubA, 0.0))),
+                   float(np.max(np.maximum(lb - x, 0.0))),
+                   float(np.max(np.maximum(x - ub, 0.0))))
+        x_ipm, o_ipm = res.x[b].numpy(), float(res.objective[b])
+        rows.append((status, float(np.abs(x - x_ipm).max()),
+                     float(np.abs(x[:NU] - x_ipm[:NU]).max()),
+                     abs(obj - o_ipm) / max(1.0, abs(o_ipm)), viol))
+    return rows
+
+
+def runtime_phase(model, device):
+    """(f) the native runtime built with g++ here: the active-set QP on 4
+    of phase 3's QPs in f64 against the port's f64 dense IPM on the CPU
+    (:func:`activeset_rows`), and the native CSV reader against numpy."""
+    import numpy as np
+    import torch
+    from fsae_mpc_tpu_torch.mpc import ltv
+    from fsae_mpc_tpu_torch.runtime import native_lib
+
+    # g++ builds the sources here, into a directory of this run's own:
+    # whether fsae_mpc_tpu_torch/build/ already holds the library (an
+    # earlier run, the tests) does not matter to the check
+    os.makedirs(native_lib.BUILD_DIR, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=native_lib.BUILD_DIR) as tmp:
+        t0 = time.perf_counter()
+        try:
+            native_lib.build_library(os.path.join(tmp, "libfsae_native.so"))
+            err = None
+        except (OSError, RuntimeError, subprocess.SubprocessError) as e:
+            err = e
+        log(f"routes (f) g++ build of the native runtime: "
+            f"{'ok' if err is None else err} "
+            f"({time.perf_counter() - t0:.1f} s)")
+    check(err is None, f"routes (f): the native runtime did not build: {err}")
+    lib = native_lib.load_native()
+    path = native_lib.library_path()
+    check(lib is not None and os.path.samefile(lib._name, path),
+          "routes (f): load_native() did not load the library of this "
+          "tree's sources")
+    log(f"routes (f) native runtime loaded from "
+        f"{os.path.relpath(path, ROOT)} (named by the sources' hash)")
+    track, params, mpc = model
+    x0_t, x_lin_t, u_lin_t = (t[:4] for t in initial_batch(
+        B_MAIN, mpc, torch.float32, device))
+    qp = ltv.build_qp_dynamic(x0_t, reference(x0_t, mpc), track, params,
+                              mpc, x_lin_t, u_lin_t)[0]
+    rows = activeset_rows([to_cpu64(q) for q in qp[:7]])
+    log("routes (f) active-set vs f64 IPM on 4 of phase 3's QPs (status, "
+        "max |dx|, first control |du|, objective rel diff, violation): "
+        + "; ".join(f"{s}, {a:.3e}, {u:.3e}, {o:.3e}, {v:.1e}"
+                    for s, a, u, o, v in rows)
+        + f" (tols |dx| {ACTIVESET_X_TOL:.0e}, objective "
+        f"{ACTIVESET_OBJ_RTOL:.0e})")
+    check(all(s == 0 and a <= ACTIVESET_X_TOL and o <= ACTIVESET_OBJ_RTOL
+              and v <= 1e-8 for s, a, u, o, v in rows),
+          f"routes (f): active-set QP {rows}")
+    path = os.path.join(ROOT, "data", "fsg2019.csv")
+    got = native_lib.read_matrix(path)
+    ref = np.genfromtxt(path, delimiter=",", skip_header=1)
+    log(f"routes (f) read_matrix(fsg2019) {got.shape} equal to numpy: "
+        f"{bool(np.array_equal(got, ref))}")
+    check(got.shape == ref.shape and np.array_equal(got, ref),
+          "routes (f): the native CSV reader differs from numpy")
+
+
+def routes_phase(model, device, card, rec):
+    """Phase 9: the structured tick (a), its accuracy (b), GenRows on the
+    card (c), ``condense="dnc"`` (d), ``chol="blocked"`` (e) and the
+    native runtime (f).  Returns (a)'s launch counts."""
+    t0 = time.perf_counter()
+    runs, counts = gen_tick_phase(model, device, card)
+    regime = regime_qps(model, rec)
+    gen_accuracy(regime, model, device)
+    genrows_on_card(runs, model, device)
+    dnc_phase(runs, regime, model, rec, device)
+    blocked_phase(runs, regime, model, device, card)
+    runtime_phase(model, device)
+    log(f"phase 9 (structured and alternative routes): "
+        f"{time.perf_counter() - t0:.1f} s")
+    return counts
+
+
 def kernel_line(kres, paths):
     """The ``kernels`` JSON object: every kernel with its launches on the
-    paths' runs (phases 3-8, summed), its parity and its times (at the
+    paths' runs (phases 3-9, summed), its parity and its times (at the
     main path's shapes) beside its bound."""
     out = []
     for source, mod in kernel_modules().items():
@@ -2167,7 +2601,7 @@ def main() -> int:
                                               kres)
             paths.append(counts)
             sync_check(backend, outs[backend], model)
-        accuracy_record_regime(model, device)
+        rec_state = accuracy_record_regime(model, device)
         accuracy_warm_chain("riccati", outs["riccati"], model)
         dense_refs = accuracy_warm_chain("dense", outs["dense"], model)
         accuracy_same_qp(outs["dense"], dense_refs, model)
@@ -2183,6 +2617,7 @@ def main() -> int:
             RACELINE_STATE_TOL, model, device, card, kres, raceline_refs,
             plan=plan))
         paths.append(pod_phase(device, card, pod_track, pod_params, pod_ref))
+        paths.append(routes_phase(model, device, card, rec_state))
         line = kernel_line(kres, paths)
     except Fail as e:
         log(f"FAIL: {e}")

@@ -23,6 +23,7 @@ import torch
 from .config import MPCParams, VehicleParams
 from .ops.ipm import IpmOptions, IpmResult
 from .ops.riccati import StageIpmResult, StageQP
+from .ops.structured import GenRows
 from .planner.min_time import PlannerResult
 from .sim.closed_loop import SimConfig, SimOutputs
 from .track.track import Track
@@ -108,6 +109,14 @@ def ipm_result(src: Mapping, dtype=None,
     """A (batched) ``fsae_mpc_tpu.ops.ipm.IpmResult`` -- the dense
     solver's state one tick hands to the next as its warm start."""
     return _fields(IpmResult, src, dtype, device)
+
+
+def gen_rows(src: Mapping, dtype=None, device="cuda") -> GenRows:
+    """A (batched) ``fsae_mpc_tpu.ops.structured.GenRows``: the
+    generator-factored constraint matrix of ``build_qp_dynamic(...,
+    structured="gen")``, fields Ag (B, S, G, n), W (B, S, R, G) and
+    Ws (B, S, R, ns)."""
+    return _fields(GenRows, src, dtype, device)
 
 
 def planner_result(src: Mapping, dtype=torch.float64,

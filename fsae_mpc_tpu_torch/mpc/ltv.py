@@ -8,8 +8,10 @@ track row) along the previous trajectory, then either
 
   * (``backend="dense"``, the default) condense the horizon
     (``CONDENSERS``), assemble the condensed QP over the N*nu controls and
-    the slacks (:func:`assemble_condensed_qp`), solve it with the dense
-    IPM (``ops/ipm.py``) and roll the states out; or
+    the slacks (:func:`assemble_condensed_qp`; or, for the dynamic model
+    with ``structured="gen"``, :func:`assemble_gen_dynamic`, whose rows
+    stay generator-factored), solve it with the dense IPM (``ops/ipm.py``)
+    and roll the states out; or
   * (``backend="riccati"``) assemble the uncondensed
     :class:`ops.riccati.StageQP` and solve it stage-wise.
 
@@ -23,24 +25,29 @@ from typing import Sequence
 
 import numpy as np
 import torch
+from torch.func import jacfwd
 
 from ..config import MPCParams, VehicleParams
 from ..models import curvilinear as cm
 from ..models import integrators
+from ..models.instances import vmap_instances
 from ..ops import ipm
 from ..ops import riccati
 from ..ops.condense import condense as _condense
+from ..ops.condense import condense_dnc as _condense_dnc
 from ..ops.condense import rollout as _rollout
 from ..ops.kernels import condense as _kcondense
 from ..ops.precision import highest as _highest_precision
+from ..ops.structured import GenRows
 from . import constraints as cons
 
 # Condensing backends: "pallas" names the hand-written kernel
 # (``ops/kernels/condense.py``: the kernel on CUDA tensors, its plain
-# version on CPU tensors), "scan" the plain loop over stages.  The JAX
-# package's "dnc" (divide and conquer, a TPU-measured variant) is not
-# ported and raises.
-CONDENSERS = {"scan": _condense, "pallas": _kcondense.condense}
+# version on CPU tensors), "scan" the plain loop over stages, "dnc" the
+# divide-and-conquer merge in log depth (plain PyTorch on any device: the
+# JAX package computes it outside any Pallas kernel too).
+CONDENSERS = {"scan": _condense, "dnc": _condense_dnc,
+              "pallas": _kcondense.condense}
 DEFAULT_CONDENSE = "pallas"
 
 
@@ -103,6 +110,118 @@ def _qp_cost(A_bar, B_bar, d_bar, x0, x_ref, q_diag, r_diag,
                       torch.full((Bsz, n_soft), float("inf"), dtype=dtype,
                                  device=dev)], 1)
     return H, g, lb_v, ub_v, const, x_pred
+
+
+def _rear_force_gradient(x_lin, params):
+    """d(Fcr/m)/dx at every linearisation point, (..., N, nx): the
+    friction polygon's state gradient, per instance's vehicle."""
+    def one(x, p):
+        fn = lambda xx: cm.rear_lateral_force(xx, p) / p.m
+        # see models.integrators.linearize_discrete on the dtype cast
+        return jacfwd(fn)(x).to(x.dtype)
+
+    return vmap_instances(one, (x_lin,), x_lin.ndim - 1, (params,))
+
+
+@_highest_precision
+def assemble_gen_dynamic(A_bar, B_bar, d_bar, x0, x_ref, q_diag, r_diag,
+                         r_soft: Sequence[float], track, params, mpc,
+                         x_lin, u_lin, u_lb, u_ub):
+    """Generator-factored assembly of the dynamic-LTV QP rows.
+
+    The 20 rows a stage are static combinations of seven per-stage
+    generators in variable space (``ops.structured.GenRows``):
+
+      0: e_v  @ B_bar[s]      (v >= 0 hard box)
+      1: e_d  @ B_bar[s]      (|delta| <= delta_max hard box)
+      2: e_n  @ B_bar[s]      (|n| <= n_max, soft, two emitted sides)
+      3: da_r @ B_bar[s]      (rear slip gradient, soft, two sides)
+      4: da_f @ B_bar[s]      (front slip gradient, soft, two sides)
+      5: gfcr @ B_bar[s]      (rear-force gradient: every polygon row is
+                               -dal_j * gfcr + dac_j * e_u0)
+      6: e_{u0,s}             (the stage's own Fx/m control column)
+
+    Returns (H, g, A: GenRows, lb, ub, lbA, ubA, const) with rows in
+    stage-major order ([box2, n_lo, n_up, slip_lo2, slip_up2, poly12] a
+    stage); lbA/ubA match that order.  The polygon's coefficients are made
+    once on the host, so ``params.ac_max`` and ``params.al_max`` must be
+    shared by the batch (``ValueError`` otherwise); every other parameter
+    may be per instance.
+    """
+    for name in ("ac_max", "al_max"):
+        v = getattr(params, name)
+        if torch.is_tensor(v) and v.ndim:
+            raise ValueError(
+                f"structured='gen' builds the friction polygon's row "
+                f"coefficients once for the batch: params.{name} must be "
+                f"one value, not a per-instance tensor; use the dense "
+                f"default")
+    Bsz, N, nx, ncu = B_bar.shape
+    nu = u_lb.shape[-1]
+    n_soft = len(r_soft)
+    dtype, dev = B_bar.dtype, B_bar.device
+    H, g, lb_v, ub_v, const, x_pred = _qp_cost(
+        A_bar, B_bar, d_bar, x0, x_ref, q_diag, r_diag, r_soft, u_lb, u_ub)
+
+    slip = cons.dynamic_slip_group(x_lin, u_lin, mpc, params, 1, 2)
+    poly = cons.friction_polygon_group(x_lin, u_lin, mpc, params, 3)
+    K = mpc.n_tyre_polygon
+
+    # state-space generator rows (B, N, 6, nx)
+    e = np.eye(nx)
+    Cg = torch.cat([_const(e[[3, 6, 1]], dtype, dev).expand(Bsz, N, 3, nx),
+                    slip.C,
+                    _rear_force_gradient(x_lin, params)[:, :, None, :]], 2)
+    # generator 6: the stage's own first-control column (static one-hots)
+    u0 = np.zeros((N, 1, ncu))
+    u0[np.arange(N), 0, np.arange(N) * nu] = 1.0
+    Ag = torch.cat([Cg @ B_bar,
+                    _const(u0, dtype, dev).expand(Bsz, N, 1, ncu)], 2)
+    Ag = torch.cat([Ag, Ag.new_zeros((Bsz, N, 7, n_soft))], -1)
+
+    # static row coefficients (R = 8 + K rows a stage)
+    R = 8 + K
+    theta = np.linspace(0.0, 2.0 * np.pi, K + 1)
+    dac = float(params.ac_max) * np.diff(np.sin(theta))
+    dal = float(params.al_max) * np.diff(np.cos(theta))
+    W = np.zeros((R, 7))
+    W[0, 0] = 1.0                 # v box
+    W[1, 1] = 1.0                 # delta box
+    W[2, 2] = W[3, 2] = 1.0       # n lower / upper
+    W[4, 3] = W[6, 3] = 1.0       # rear slip lower / upper
+    W[5, 4] = W[7, 4] = 1.0       # front slip lower / upper
+    W[8:, 5] = -dal               # polygon: -dal_j * gfcr
+    W[8:, 6] = dac                # polygon: +dac_j * u0
+    Ws = np.zeros((R, n_soft))
+    Ws[2, 0], Ws[3, 0] = 1.0, -1.0
+    Ws[4, 1], Ws[6, 1] = 1.0, -1.0
+    Ws[5, 2], Ws[7, 2] = 1.0, -1.0
+    Ws[8:, 3] = -1.0
+    A = GenRows(Ag=Ag, W=_const(W, dtype, dev).expand(Bsz, N, R, 7),
+                Ws=_const(Ws, dtype, dev).expand(Bsz, N, R, n_soft))
+
+    # per-row offsets (offset_const + C @ x_pred) and bounds, stage-major
+    inf = np.inf
+    off_box = torch.stack([x_pred[..., 3], x_pred[..., 6]], -1)
+    off_n = x_pred[..., 1:2]
+    off_slip = slip.offset_const + torch.einsum("bnri,bni->bnr", slip.C,
+                                                x_pred)
+    off_poly = poly.offset_const + torch.einsum("bnri,bni->bnr", poly.C,
+                                                x_pred)
+    offset = torch.cat([off_box, off_n, off_n, off_slip, off_slip,
+                        off_poly], -1)                         # (B, N, R)
+    sm = float(mpc.slip_max)
+    lo = np.concatenate([[0.0, -float(mpc.delta_max)],
+                         [-float(mpc.n_max), -inf],
+                         [-sm, -sm], [-inf, -inf],
+                         np.full(K, -inf)])
+    hi = np.concatenate([[inf, float(mpc.delta_max)],
+                         [inf, float(mpc.n_max)],
+                         [inf, inf], [sm, sm],
+                         np.zeros(K)])
+    lbA = (_const(lo, dtype, dev) - offset).reshape(Bsz, N * R)
+    ubA = (_const(hi, dtype, dev) - offset).reshape(Bsz, N * R)
+    return H, g, A, lb_v, ub_v, lbA, ubA, const
 
 
 def _aligned(groups, N) -> bool:
@@ -350,10 +469,11 @@ _MODELS = {
 
 
 def _linearise(model: str, track, params: VehicleParams, mpc: MPCParams,
-               x_lin, u_lin, stepper: str):
+               x_lin, u_lin, stepper: str, with_groups: bool = True):
     """The tick's shared first layer: the discrete linearisation
     (Ad, Bd, dd), the cost weights q (nx,) and r_ab (nu,), the constraint
-    groups, the control bounds and the slack weights."""
+    groups (None without ``with_groups``), the control bounds and the
+    slack weights."""
     f_curv, groups_of, r_soft = _MODELS[model]
     dtype, dev = x_lin.dtype, x_lin.device
     Bsz, nx = x_lin.shape[0], x_lin.shape[-1]
@@ -362,7 +482,7 @@ def _linearise(model: str, track, params: VehicleParams, mpc: MPCParams,
         (track, params))
     q = _const([mpc.q_s, mpc.q_n, mpc.q_mu] + [0.0] * (nx - 3), dtype, dev)
     r_ab = _const([mpc.r_a, mpc.r_delta_d], dtype, dev)
-    groups = groups_of(x_lin, u_lin, mpc, params)
+    groups = groups_of(x_lin, u_lin, mpc, params) if with_groups else None
     u_lb, u_ub = _control_bounds(mpc, Bsz, mpc.n_steps, dtype, dev)
     return Ad, Bd, dd, q, r_ab, groups, u_lb, u_ub, r_soft(mpc)
 
@@ -375,26 +495,41 @@ def _build_stage(model, x0, x_ref, track, params, mpc, x_lin, u_lin,
                           Ad, Bd, dd, u_lb, u_ub)
 
 
+def _check_structured(structured):
+    """``structured``: False (the dense rows) or ``"gen"``; anything else
+    raises the JAX package's error."""
+    if structured and structured != "gen":
+        raise ValueError(
+            "the StageRows structured path was retired in round 4 "
+            "(lost at every measured operating point); use "
+            "structured='gen' or the dense default")
+
+
 def _build_condensed(model, x0, x_ref, track, params, mpc, x_lin, u_lin,
-                     stepper, condense):
-    name = condense or DEFAULT_CONDENSE
-    if name == "dnc":
-        raise ValueError("condense='dnc' is not ported; use 'pallas' or "
-                         "'scan'")
+                     stepper, condense, structured=False):
+    _check_structured(structured)
+    gen = structured == "gen"
     N = mpc.n_steps
     Ad, Bd, dd, q, r_ab, groups, u_lb, u_ub, r_soft = _linearise(
-        model, track, params, mpc, x_lin, u_lin, stepper)
-    A_bar, B_bar, d_bar = CONDENSERS[name](
+        model, track, params, mpc, x_lin, u_lin, stepper,
+        with_groups=not gen)
+    A_bar, B_bar, d_bar = CONDENSERS[condense or DEFAULT_CONDENSE](
         Ad.contiguous(), Bd.contiguous(), dd.contiguous())
     q_diag = torch.cat([q.repeat(N - 1), q * mpc.q_terminal_scale])
     r_diag = r_ab.repeat(N)
-    qp = assemble_condensed_qp(A_bar, B_bar, d_bar, x0, x_ref, q_diag,
-                               r_diag, r_soft, groups, u_lb, u_ub)
+    if gen:
+        qp = assemble_gen_dynamic(A_bar, B_bar, d_bar, x0, x_ref, q_diag,
+                                  r_diag, r_soft, track, params, mpc, x_lin,
+                                  u_lin, u_lb, u_ub)
+    else:
+        qp = assemble_condensed_qp(A_bar, B_bar, d_bar, x0, x_ref, q_diag,
+                                   r_diag, r_soft, groups, u_lb, u_ub)
     return qp, (Ad, Bd, dd)
 
 
 def _ltv_tick(model, x0, x_ref, track, params, mpc, x_lin, u_lin, opts,
-              stepper, warm, condense, backend) -> LtvResult:
+              stepper, warm, condense, backend,
+              structured=False) -> LtvResult:
     """One batch of LTV ticks of ``model`` on ``backend``."""
     if backend == "riccati":
         qp, const = _build_stage(model, x0, x_ref, track, params, mpc,
@@ -407,7 +542,7 @@ def _ltv_tick(model, x0, x_ref, track, params, mpc, x_lin, u_lin, opts,
     N, nu = mpc.n_steps, 2
     (H, g, A, lb, ub, lbA, ubA, const), (Ad, Bd, dd) = _build_condensed(
         model, x0, x_ref, track, params, mpc, x_lin, u_lin, stepper,
-        condense)
+        condense, structured)
     res = ipm.solve_qp(H, g, A, lb, ub, lbA, ubA, opts, warm=warm)
     u_opt = res.x[:, :N * nu].reshape(-1, N, nu)
     x_opt = _rollout(Ad, Bd, dd, x0, u_opt)
@@ -445,19 +580,13 @@ def build_qp_dynamic(x0, x_ref, track, params: VehicleParams,
 
     Returns ``((H, g, A, lb, ub, lbA, ubA, const), (Ad, Bd, dd))`` -- the
     condensed QPs plus the discrete linearisation (needed to recover the
-    predicted states from the control solution).  The JAX package's
-    generator-factored rows (``structured="gen"``) are not ported; any
-    ``structured`` raises ``ValueError``.
+    predicted states from the control solution).  ``structured="gen"``
+    returns A as an :class:`ops.structured.GenRows` with stage-major rows
+    (:func:`assemble_gen_dynamic`); any other true ``structured`` raises
+    ``ValueError``.
     """
-    _check_structured(structured)
     return _build_condensed("dynamic", x0, x_ref, track, params, mpc, x_lin,
-                            u_lin, stepper, condense)
-
-
-def _check_structured(structured):
-    if structured:
-        raise ValueError("structured constraint rows are not ported; use "
-                         "the dense default")
+                            u_lin, stepper, condense, structured)
 
 
 def ltv_mpc_dynamic(x0, x_ref, track, params: VehicleParams,
@@ -470,14 +599,17 @@ def ltv_mpc_dynamic(x0, x_ref, track, params: VehicleParams,
     """A batch of dynamic-model LTV-MPC ticks.
 
     ``backend="dense"``: the condensed QP on the dense IPM; ``warm`` is
-    the :class:`ops.ipm.IpmResult` of the previous tick.
+    the :class:`ops.ipm.IpmResult` of the previous tick.  With
+    ``structured="gen"`` the 800 constraint rows stay generator-factored
+    through the IPM (the same QP; :func:`assemble_gen_dynamic`); its rows,
+    and so ``res.qp.z_rows``, are stage-major, so a warm start must come
+    from a solve of the same layout.  ``structured=True`` raises.
     ``backend="riccati"``: :func:`ltv_mpc_dynamic_riccati` (``warm`` a
-    :class:`ops.riccati.StageIpmResult`).  Both solve the same QP.
+    :class:`ops.riccati.StageIpmResult`; ``structured`` is ignored).  Both
+    solve the same QP.
     """
-    if backend == "dense":
-        _check_structured(structured)
     return _ltv_tick("dynamic", x0, x_ref, track, params, mpc, x_lin, u_lin,
-                     opts, stepper, warm, condense, backend)
+                     opts, stepper, warm, condense, backend, structured)
 
 
 def ltv_mpc_kinematic(x0, x_ref, track, params: VehicleParams,

@@ -1,14 +1,15 @@
 """Condensing: stage-wise affine dynamics -> dense prediction matrices
-(port of ``condense``, ``condense_associative``, ``condense_general`` and
-``rollout`` of ``fsae_mpc_tpu.ops.condense``).
+(port of ``condense``, ``condense_dnc``, ``condense_associative``,
+``condense_general`` and ``rollout`` of ``fsae_mpc_tpu.ops.condense``).
 
 Inputs are the discrete stage matrices (x_{k+1} = Ad x_k + Bd u_k + dd),
 batch first.  :func:`condense` is the horizon recurrence written as a
 plain loop over the N stages, the plain version of the hand-written
-kernel in ``ops/kernels/condense.py``.  :func:`condense_general` (the
-collocation transcriptions' multi-control recurrence) and
-:func:`condense_associative` (the transition products in log depth) have
-no TPU kernel in the JAX package and stay plain PyTorch.
+kernel in ``ops/kernels/condense.py``.  :func:`condense_dnc` (the same
+outputs in log depth), :func:`condense_general` (the collocation
+transcriptions' multi-control recurrence) and :func:`condense_associative`
+(the transition products in log depth) have no TPU kernel in the JAX
+package and stay plain PyTorch.
 """
 
 from __future__ import annotations
@@ -49,6 +50,49 @@ def condense(Ad, Bd, dd):
         B_bar.append(G)
         d_bar.append(delta)
     return torch.stack(A_bar, 1), torch.stack(B_bar, 1), torch.stack(d_bar, 1)
+
+
+@_highest_precision
+def condense_dnc(Ad, Bd, dd):
+    """Divide-and-conquer condensing: :func:`condense`'s outputs in
+    ceil(log2 N) merge levels instead of N sequential stages.
+
+    The horizon is padded to a power of two P with identity stages.  A
+    segment holds its prefix transitions A, prefix input maps B (over the
+    segment's own controls) and prefix offsets d; each level merges every
+    adjacent pair of segments in one batched product:
+
+        A_r' = A_r A_L,   B_r' = [A_r B_L | B_r],   d_r' = A_r d_L + d_r
+
+    with (A_L, B_L, d_L) the left segment's last prefix.  Shapes as
+    :func:`condense`.
+    """
+    Bsz, N, nx, nu = Bd.shape
+    dtype, dev = Ad.dtype, Ad.device
+    P = 1 << max(1, (N - 1).bit_length())
+    eye = torch.eye(nx, dtype=dtype, device=dev)
+    A = torch.cat([Ad, eye.expand(Bsz, P - N, nx, nx)], 1)
+    B = torch.cat([Bd, Bd.new_zeros((Bsz, P - N, nx, nu))], 1)
+    d = torch.cat([dd, dd.new_zeros((Bsz, P - N, nx))], 1)
+    # segments (B, S, w, ...): S = P / w segments of w stages, each B over
+    # the segment's own w*nu control columns
+    w = 1
+    A = A.reshape(Bsz, P, 1, nx, nx)
+    B = B.reshape(Bsz, P, 1, nx, nu)
+    d = d.reshape(Bsz, P, 1, nx)
+    while w < P:
+        AL, AR = A[:, 0::2], A[:, 1::2]           # (B, S/2, w, nx, nx)
+        BL, BR = B[:, 0::2], B[:, 1::2]           # (B, S/2, w, nx, w*nu)
+        dL, dR = d[:, 0::2], d[:, 1::2]
+        AR2 = AR @ AL[:, :, -1:]
+        BRL = AR @ BL[:, :, -1:]
+        dR2 = (AR @ dL[:, :, -1:, :, None])[..., 0] + dR
+        B = torch.cat([torch.cat([BL, torch.zeros_like(BR)], -1),
+                       torch.cat([BRL, BR], -1)], 2)
+        A = torch.cat([AL, AR2], 2)
+        d = torch.cat([dL, dR2], 2)
+        w *= 2
+    return A[:, 0, :N], B[:, 0, :N, :, :N * nu], d[:, 0, :N]
 
 
 @_highest_precision

@@ -19,8 +19,11 @@ polish, restart gate) is made per instance.
 
 The KKT factorisations and solves go through ``ops/kernels/chol.py``
 (``chol="auto"``: the hand-written kernels on CUDA tensors, their plain
-versions on CPU tensors).  With ``opts.adaptive=False`` (the f32 presets)
-a solve is a fixed sequence of device work with no host synchronisation.
+versions on CPU tensors), or through the blocked Cholesky of
+``ops/linalg.py`` (``chol="blocked"``).  A may be dense or an
+``ops.structured.GenRows``; the products dispatch on it.  With
+``opts.adaptive=False`` (the f32 presets) a solve is a fixed sequence of
+device work with no host synchronisation.
 
 ``IpmOptions`` is also what the stage-wise solver (``ops/riccati.py``)
 reads; field names and defaults are the JAX package's.
@@ -32,9 +35,11 @@ import dataclasses
 
 import torch
 
+from . import linalg
 from .kernels import chol as kchol
 from .precision import highest as _highest_precision
 from .precision import residual_affine
+from .structured import is_structured
 
 
 def _pow2(x):
@@ -61,11 +66,13 @@ class IpmOptions:
     chol: str = "auto"          # dense KKT factorisation: "auto" (the
                                 # hand kernels on CUDA tensors, their plain
                                 # versions on CPU tensors), "lapack" (the
-                                # plain versions); the JAX package's
-                                # "blocked" (a TPU VMEM workaround) raises
-                                # ValueError
+                                # plain versions), "blocked" (the blocked
+                                # Cholesky of ops/linalg.py: matrix
+                                # products, no hand kernel, pivots clamped
+                                # at 1e-30 instead of NaN)
     equilibrate: bool = True    # scale general rows by a power of two of
-                                # their inf-norm (dense) / 2-norm (stage)
+                                # their inf-norm (dense A) / 2-norm
+                                # (GenRows, stage)
     init: str = "centered"      # "centered" | "basic"
     mu0: float = 1.0            # initial centrality target (scaled problem)
     warm_duals: str = "centered"  # "centered" | "reuse"
@@ -180,15 +187,23 @@ class IpmResult:
 
 
 def _mv(A, x):
+    """A @ x for a dense or generator-factored A."""
+    if is_structured(A):
+        return A.matvec(x)
     return torch.einsum("bmn,bn->bm", A, x)
 
 
 def _rmv(A, z):
+    """A' @ z for a dense or generator-factored A."""
+    if is_structured(A):
+        return A.rmatvec(z)
     return torch.einsum("bmn,bm->bn", A, z)
 
 
 def _qf(A, d):
-    """A' diag(d) A, batched."""
+    """A' diag(d) A, batched, for a dense or generator-factored A."""
+    if is_structured(A):
+        return A.quadform(d)
     return torch.bmm(A.mT * d[:, None, :], A)
 
 
@@ -212,9 +227,8 @@ def _chol_fns(chol: str):
     if chol == "lapack":
         return kchol.factor_ref, kchol.solve_ref
     if chol == "blocked":
-        raise ValueError("chol='blocked' is the JAX package's workaround "
-                         "for a TPU VMEM limit and has no counterpart in "
-                         "the port; use 'auto' or 'lapack'")
+        return (linalg.cholesky_invdiag,
+                lambda c, r: linalg.cho_solve_invdiag(*c, r))
     raise ValueError(f"unknown chol={chol!r}")
 
 
@@ -306,7 +320,10 @@ def _refine_restart(H, g, A, lb, ub, lbA, ubA, opts, x0, warm):
         xb = res.x
         g_hi, g_lo = residual_affine(H, xb, g)
         gd = g_hi + g_lo
-        y_hi, y_lo = residual_affine(A, xb, zero_m)
+        if is_structured(A):
+            y_hi, y_lo = A.matvec_compensated(xb)
+        else:
+            y_hi, y_lo = residual_affine(A, xb, zero_m)
         lbAd = (lbA - y_hi) - y_lo
         ubAd = (ubA - y_hi) - y_lo
         # the delta problem's optimal duals equal the original's: warm-start
@@ -348,14 +365,15 @@ def solve_qp(H, g, A, lb, ub, lbA, ubA, opts: IpmOptions = IpmOptions(),
              x0=None, warm: IpmResult | None = None) -> IpmResult:
     """Solve a batch of dense QPs.
 
-    Shapes: H (B, n, n), g (B, n), A (B, m, n), lb/ub (B, n),
-    lbA/ubA (B, m).  Infinite entries in lb/ub/lbA/ubA deactivate that
-    side.  ``warm``: the :class:`IpmResult` of a previous same-shape batch;
-    primal and duals are re-seeded from it.  On a CUDA device under
+    Shapes: H (B, n, n), g (B, n), A (B, m, n) (a tensor or a
+    :class:`ops.structured.GenRows`), lb/ub (B, n), lbA/ubA (B, m).
+    Infinite entries in lb/ub/lbA/ubA deactivate that side.  ``warm``: the
+    :class:`IpmResult` of a previous same-shape batch; primal and duals
+    are re-seeded from it.  On a CUDA device under
     ``chol="auto"``, a problem the kernels cannot run (not float32, n above
     ``kernels.chol.MAX_N``) raises ``ValueError`` before any launch.
     """
-    _chol_fns(opts.chol)            # an unknown or unported choice raises
+    _chol_fns(opts.chol)            # an unknown choice raises
     kchol.check_entry(H.device, H.dtype, H.shape[-1], opts.chol)
     if opts.refine_restart:
         return _refine_restart(H, g, A, lb, ub, lbA, ubA, opts, x0, warm)
@@ -373,8 +391,9 @@ def solve_qp(H, g, A, lb, ub, lbA, ubA, opts: IpmOptions = IpmOptions(),
         if warm is not None:
             warm_i = dataclasses.replace(warm, x=warm.x / vs,
                                          z_bounds=warm.z_bounds * vs)
+        A_v = A.scale_cols(vs) if is_structured(A) else A * vs[:, None, :]
         res = solve_qp(H * vs[:, :, None] * vs[:, None, :], g * vs,
-                       A * vs[:, None, :], lb / vs, ub / vs, lbA, ubA, inner,
+                       A_v, lb / vs, ub / vs, lbA, ubA, inner,
                        x0=None if x0 is None else x0 / vs, warm=warm_i)
         x_u = res.x * vs
         return dataclasses.replace(res, x=x_u, z_bounds=res.z_bounds / vs,
@@ -397,8 +416,14 @@ def _solve_core(H, g, A, lb, ub, lbA, ubA, opts, x0, warm) -> IpmResult:
 
     # ---- row equilibration (unit inf-norm general rows) -------------------
     if opts.equilibrate:
-        r_scale = _pow2(1.0 / torch.clamp_min(A.abs().amax(-1), 1e-12))
-        A = A * r_scale[:, :, None]
+        if is_structured(A):
+            # 2-norm rows (the inf-norm needs the dense rows)
+            r_scale = _pow2(torch.rsqrt(torch.clamp_min(A.row_sq_norms(),
+                                                        1e-24)))
+            A = A.scale_rows(r_scale)
+        else:
+            r_scale = _pow2(1.0 / torch.clamp_min(A.abs().amax(-1), 1e-12))
+            A = A * r_scale[:, :, None]
         lbA = lbA * r_scale
         ubA = ubA * r_scale
     else:
@@ -475,7 +500,7 @@ def _solve_core(H, g, A, lb, ub, lbA, ubA, opts, x0, warm) -> IpmResult:
                   for mk, s_, z_ in zip(masks, state[1:5], state[5:9]))
         return tot / n_active
 
-    if opts.comp_resid:
+    if opts.comp_resid and not is_structured(A):
         A_Tn = -A.mT                 # once per solve
 
     def residuals(state):
@@ -483,7 +508,10 @@ def _solve_core(H, g, A, lb, ub, lbA, ubA, opts, x0, warm) -> IpmResult:
         y = _mv(A, x)
         if opts.comp_resid:
             h1, l1 = residual_affine(Hs, x, gs - (zbl - zbu))
-            h2, l2 = residual_affine(A_Tn, zrl - zru, h1)
+            if is_structured(A):
+                h2, l2 = A.rmatvec_compensated(-(zrl - zru), h1)
+            else:
+                h2, l2 = residual_affine(A_Tn, zrl - zru, h1)
             r_dual = h2 + (l2 + l1)
         else:
             r_dual = _mv(Hs, x) + gs - (zbl - zbu) - _rmv(A, zrl - zru)

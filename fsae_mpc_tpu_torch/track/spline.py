@@ -208,6 +208,14 @@ def interpolate_dd(t, P, dl):
     return dd / dl ** 2
 
 
+def interpolate_ddd(t, P, dl):
+    """Third derivative (constant over a segment)."""
+    _, c, dl = _locate(t, P, dl)
+    ddd = (-6.0 * c[..., 0] + 18.0 * c[..., 1] - 18.0 * c[..., 2]
+           + 6.0 * c[..., 3])
+    return ddd / dl ** 3
+
+
 def angle(s, x_P, y_P, dl):
     """Tangent angle theta(s)."""
     return torch.arctan2(interpolate_d(s, y_P, dl), interpolate_d(s, x_P, dl))

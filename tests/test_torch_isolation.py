@@ -157,12 +157,17 @@ def test_kernel_wrappers_refuse_what_they_cannot_run(monkeypatch):
         kchol.factor_cuda(K)
     with pytest.raises(ValueError, match="CUDA tensor"):
         kchol.solve_cuda(K, K[:, 0])
-    # the solvers: the TPU-only Cholesky route has no counterpart, and the
-    # stage-wise solver rejects the condensed-only options (as the JAX
-    # package's _check_stage_opts does) instead of ignoring them
+    # the solvers: the blocked Cholesky route (plain PyTorch on any device,
+    # no hand kernel) solves what the plain Cholesky solves, an unknown
+    # route raises, and the stage-wise solver rejects the condensed-only
+    # options (as the JAX package's _check_stage_opts does) instead of
+    # ignoring them
     qp = [K, K[:, 0], K, -K[:, 0], K[:, 0], -K[:, 0], K[:, 0]]
-    with pytest.raises(ValueError, match="blocked"):
-        ipm.solve_qp(*qp, ipm.IpmOptions(chol="blocked"))
+    blocked = ipm.solve_qp(*qp, ipm.IpmOptions(chol="blocked"))
+    lapack = ipm.solve_qp(*qp, ipm.IpmOptions(chol="lapack"))
+    torch.testing.assert_close(blocked.x, lapack.x, rtol=0, atol=1e-9)
+    with pytest.raises(ValueError, match="unknown chol"):
+        ipm.solve_qp(*qp, ipm.IpmOptions(chol="pallas"))
     for field, value in (("polish", 1), ("scale_kkt", True),
                          ("comp_resid", True), ("correctors", 1),
                          ("var_scale", True)):
@@ -188,6 +193,7 @@ def test_kernel_wrappers_refuse_what_they_cannot_run(monkeypatch):
         with pytest.raises(ValueError, match='chol="lapack"'):
             kchol.check_entry(cuda, dtype, n, "auto")
         kchol.check_entry(cuda, dtype, n, "lapack")
+        kchol.check_entry(cuda, dtype, n, "blocked")
         kchol.check_entry(cpu, dtype, n, "auto")
     # ... and both solvers ask it first, with the problem's widths
     seen = []
@@ -224,6 +230,9 @@ def test_port_never_imports_jax():
             "fsae_mpc_tpu_torch.models.pid, fsae_mpc_tpu_torch.mpc.sqp, "
             "fsae_mpc_tpu_torch.mpc.collocation, "
             "fsae_mpc_tpu_torch.ops.linalg, fsae_mpc_tpu_torch.ops.condense, "
+            "fsae_mpc_tpu_torch.ops.structured, fsae_mpc_tpu_torch.runtime, "
+            "fsae_mpc_tpu_torch.runtime.native_lib, "
+            "fsae_mpc_tpu_torch.utils.io, "
             "fsae_mpc_tpu_torch.planner, "
             "fsae_mpc_tpu_torch.planner.min_time, "
             "fsae_mpc_tpu_torch.planner.reference; "

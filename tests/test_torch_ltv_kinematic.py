@@ -159,8 +159,8 @@ def test_kinematic_tick_matches_jax(case, backend, jax_results, port_setup):
 
 def test_kinematic_backends_share_the_minimiser(jax_results, port_setup):
     """Both backends solve the same QP (tight f64 solves): the dense one
-    has 2N+1 variables, the Riccati one nx=5 and ns=1.  An unported
-    condenser raises."""
+    has 2N+1 variables, the Riccati one nx=5 and ns=1.  The
+    divide-and-conquer condenser gives the dense tick of the default one."""
     mpc, track, params = port_setup
     x0, x_ref, x_lin, u_lin, _ = (_t(a) for a in jax_results[1])
     opts = ipm.IpmOptions(max_iters=60)
@@ -173,6 +173,9 @@ def test_kinematic_backends_share_the_minimiser(jax_results, port_setup):
     np.testing.assert_allclose(rr.u_opt[:, 0].numpy(),
                                rd.u_opt[:, 0].numpy(), atol=1e-4)
     np.testing.assert_allclose(rr.fval.numpy(), rd.fval.numpy(), rtol=1e-5)
-    with pytest.raises(ValueError, match="dnc"):
-        ltv.ltv_mpc_kinematic(x0, x_ref, track, params, mpc, x_lin, u_lin,
-                              opts, condense="dnc")
+    rdnc = ltv.ltv_mpc_kinematic(x0, x_ref, track, params, mpc, x_lin,
+                                 u_lin, opts, condense="dnc")
+    np.testing.assert_allclose(rdnc.u_opt.numpy(), rd.u_opt.numpy(),
+                               rtol=0, atol=1e-9)
+    np.testing.assert_allclose(rdnc.fval.numpy(), rd.fval.numpy(),
+                               rtol=1e-12)

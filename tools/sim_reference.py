@@ -10,6 +10,7 @@ computed on a CPU.
                                               [--nmpc | --raceline PLAN.npz
                                                | --pod POD.json]
                                               [--only KEY ...]
+    python3 tools/sim_reference.py routes [--check 8]
 
 ``t64``: the JAX package's f64 lap of fsg2019 in the configuration of its
 ``tests/test_laps.py`` f32-equivalence test (dynamic model, dense backend,
@@ -48,6 +49,15 @@ POD.json``: phase 8's checked instances (``chip_smoke.POD_CHECK``, two per
 track, each on its own track) with the vehicles the card drew for them
 (the file ``chip_smoke.py`` writes where ``POD_OUT`` names one), from
 rest, in ``chip_smoke.POD_CONFIG``; keyed ``"pod"``.
+
+``routes``: the bases of phase 9's tolerances on the CPU, at phase 3's
+first ``--check`` instances: the structured rows' plain f32 products
+against ``materialize()``'s and their compensated ones against f64
+(``chip_smoke.genrows_errors``: ``GENROWS_TOL``), and the native
+active-set QP against the f64 dense IPM on the first 4 dense QPs in f64
+(``chip_smoke.activeset_rows``: ``ACTIVESET_X_TOL``), with the IPM at 60
+and 200 iterations and on H plus the active-set's own regularisation
+(1e-11 max |H| on the diagonal).
 """
 
 from __future__ import annotations
@@ -187,6 +197,38 @@ def divergence(ticks, check, nmpc=False, raceline=None, only=None,
     return out
 
 
+def routes(check):
+    import torch
+    import chip_smoke
+    from fsae_mpc_tpu_torch.config import MPC_F32, VehicleParams
+    from fsae_mpc_tpu_torch.mpc import ltv
+    from fsae_mpc_tpu_torch.ops import ipm
+    from fsae_mpc_tpu_torch.track import load_track
+
+    torch.set_num_threads(1)
+    track, _ = load_track(TRACK, dtype=torch.float32, device="cpu")
+    xc, xl, ul = chip_smoke.initial_batch(check, MPC_F32, torch.float32,
+                                          "cpu")
+    args = (xc, chip_smoke.reference(xc, MPC_F32), track, VehicleParams(),
+            MPC_F32, xl, ul)
+    A = ltv.build_qp_dynamic(*args, structured="gen")[0][2]
+    plain, comp = chip_smoke.genrows_errors(A)
+    qp64 = [q[:4].double() for q in ltv.build_qp_dynamic(*args)[0][:7]]
+    H = qp64[0]
+    eye = torch.eye(H.shape[-1], dtype=H.dtype)
+    reg = 1e-11 * H.abs().amax((1, 2)).clamp_min(1.0)[:, None, None] * eye
+    keys = ("status", "dx", "du0", "dobj", "viol")
+    oracle = {}
+    for tag, qp, opts in (
+            ("ipm60", qp64, None),
+            ("ipm200", qp64, ipm.IpmOptions(max_iters=200, tol=1e-18)),
+            ("ipm60_reg", [H + reg] + qp64[1:], None)):
+        rows = chip_smoke.activeset_rows(qp, opts)
+        oracle[tag] = [dict(zip(keys, r)) for r in rows]
+    return {"genrows_plain": plain, "genrows_compensated": comp,
+            "activeset": oracle}
+
+
 def _divergence(run, tag):
     """max |x_f32 - x_f64| of ``run(dtype)``'s plant states, per state
     and per tick."""
@@ -206,7 +248,7 @@ def _divergence(run, tag):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("what", choices=("t64", "port-lap", "plan64",
-                                     "divergence"))
+                                     "divergence", "routes"))
     ap.add_argument("--ticks", type=int, default=20)
     ap.add_argument("--check", type=int, default=4)
     ap.add_argument("--nmpc", action="store_true")
@@ -225,6 +267,8 @@ def main() -> int:
         res = port_lap()
     elif a.what == "plan64":
         res = plan64(a.nodes, a.iters, a.port, a.threads, a.out)
+    elif a.what == "routes":
+        res = routes(a.check)
     else:
         res = divergence(a.ticks, a.check, a.nmpc, a.raceline, a.only,
                          a.pod)
